@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...ops.bytes import peek32
 from . import huffman_tables as HT
 from . import tables as T
 
@@ -162,22 +163,6 @@ def count1_quads(n_c1: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _peek32(rows: torch.Tensor, file_idx: torch.Tensor,
-            pos: torch.Tensor) -> torch.Tensor:
-    """The 32 bits at bit offset ``pos`` of each lane's row, as int64.
-
-    Bytes at or past the row's end read as 0."""
-    M = rows.shape[1]
-    byte = pos >> 3
-    win = torch.zeros_like(pos)
-    for k in range(5):
-        b = byte + k
-        inside = (b >= 0) & (b < M)
-        v = rows[file_idx, b.clamp(0, M - 1)].to(torch.int64)
-        win = (win << 8) | torch.where(inside, v, torch.zeros_like(v))
-    return (win >> (8 - (pos & 7))) & 0xFFFFFFFF
-
-
 def _take(win: torch.Tensor, off, n: torch.Tensor) -> torch.Tensor:
     """n bits (0 <= n, off + n <= 32) at offset off of a 32-bit window."""
     v = (win >> (32 - off - n).clamp(min=0)) & ((1 << n) - 1)
@@ -243,14 +228,14 @@ def scan_plain(
         linb = lin.gather(1, region)[:, 0]
         t_res = res.gather(1, region)[:, 0]
         has = width > 0
-        win = _peek32(main_u8, fidx, pos)
+        win = peek32(main_u8, fidx, pos)
         idx = torch.where(has, base + (win >> (32 - width.clamp(min=1))), zero)
         entry = biglut[idx].to(i64) & 0xFFFF
         ln = entry >> 8
         bad = act & ((t_res > 0) | (has & (ln == 0)))
         x = (entry >> 4) & 15
         y = entry & 15
-        w2 = _peek32(main_u8, fidx, pos + torch.where(has, ln, zero))
+        w2 = peek32(main_u8, fidx, pos + torch.where(has, ln, zero))
         o = zero
         xesc = (x == 15) & (linb > 0)
         nx = torch.where(xesc, linb, zero)
@@ -278,7 +263,7 @@ def scan_plain(
     c1 = torch.zeros((N, 144, 4), dtype=torch.int16, device=dev)
     for q in range(nq):
         act = (pos < end) & (idx0 + 4 * q < 576) & ~fail
-        w10 = _peek32(main_u8, fidx, pos) >> 22
+        w10 = peek32(main_u8, fidx, pos) >> 22
         top4 = w10 >> 6
         top5 = w10 >> 5
         w6 = w10 >> 4

@@ -1,10 +1,10 @@
 """ctypes binding to the native mp3fe bitstream front-end.
 
-The C++ library is compiled from the JAX package's own source,
-``audio_decoder_tpu/native/mp3fe.cc`` (with its ``huffman_lut.h``), into
-the port's build directory (utils/build.py); nothing is written next to
-that source.  There is no pure-Python fallback: if the library cannot be
-built, every entry point raises ``BuildError``.
+The C++ library is compiled from the port's copy of the source,
+``native/mp3fe.cc``, into the port's build directory (utils/build.py),
+with its Huffman tables header generated there first (utils/gen_luts.py).
+There is no pure-Python fallback: if the library cannot be built, every
+entry point raises ``BuildError``.
 
 * ``available()`` — whether the library could be built and loaded;
 * ``probe(blob)`` — cheap geometry walk (sr, channels, granules, joint);
@@ -21,11 +21,9 @@ import os
 
 import numpy as np
 
-from ...utils import build
+from ...utils import build, gen_luts
 
-_NATIVE_DIR = os.path.join(build.REPO_DIR, "audio_decoder_tpu", "native")
-_SRC = os.path.join(_NATIVE_DIR, "mp3fe.cc")
-_DEPS = (os.path.join(_NATIVE_DIR, "huffman_lut.h"),)
+_SRC = os.path.join(build.NATIVE_DIR, "mp3fe.cc")
 
 
 class _Info(C.Structure):
@@ -52,7 +50,9 @@ _LANE_OUT_TYPES = [
 def _build() -> str:
     if not os.path.exists(_SRC):
         raise build.BuildError(f"mp3fe source missing: {_SRC}")
-    return build.build_shared("mp3fe", "g++", build.GXX_FLAGS, [_SRC], _DEPS)
+    header = gen_luts.huffman_lut_header(build.BUILD_DIR)
+    return build.build_shared("mp3fe", "g++", build.GXX_FLAGS, [_SRC], (header,),
+                              include_dirs=(os.path.dirname(header),))
 
 
 def _declare(lib: C.CDLL) -> None:

@@ -10,6 +10,9 @@ Families:
         bit + IEEE float + A/µ-law), little-endian (codecs/wav.py).
   mp3 — MPEG Layer III: host frame/side-info walk (C++ mp3fe) + on-device
         entropy decode and synthesis (codecs/mpeg/).
+  flac — FLAC lossless: host structural walk (C++ flacfe) + on-device rice
+        scan, LPC/FIXED reconstruction, stereo decorrelation and window-add
+        assembly (codecs/flac/).
 
 The extensions of families the JAX package decodes but this port does not
 yet (``NOT_PORTED``) raise ``NotImplementedError`` instead of decoding as
@@ -23,6 +26,7 @@ import functools
 from typing import Callable
 
 from ..codecs import registry as _registry
+from ..codecs.flac import decoder as _flac
 from ..codecs.mpeg import decoder as _mpeg
 
 
@@ -50,12 +54,17 @@ MODELS = {
         decode_group=_mpeg.decode_group,
         bit_exact=False,  # ISO spec tolerance
     ),
+    "flac": CodecModel(
+        name="flac", extensions=("flac",),
+        decode_group=_flac.decode_group,
+        bit_exact=True,
+    ),
 }
 
 #: extension → what is missing (decoded by the JAX package, not yet here)
 NOT_PORTED = {
     "aif": "AIFF", "aiff": "AIFF", "aifc": "AIFF-C", "au": "Sun AU",
-    "snd": "Sun AU", "caf": "CAF", "flac": "FLAC", "mp1": "MPEG Layer I",
+    "snd": "Sun AU", "caf": "CAF", "mp1": "MPEG Layer I",
     "mp2": "MPEG Layer II",
 }
 

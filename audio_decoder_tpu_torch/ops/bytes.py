@@ -11,6 +11,8 @@ Words are assembled in int64: torch has no uint32 shift on the CPU, and
 an int32 ``>>`` is arithmetic, so a 32-bit word with its top bit set
 would come out negative.  Callers that want the JAX package's int32 view
 of a u32 field cast with ``.to(torch.int32)``, which wraps the same way.
+
+``peek32`` reads bit windows (the MP3 and FLAC entropy scans' plain forms).
 """
 
 from __future__ import annotations
@@ -61,3 +63,18 @@ def read_u16le(buf: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
 def read_u16be(buf: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     b = _gather4(buf, off)
     return (b[:, 0] << 8) | b[:, 1]
+
+
+def peek32(rows: torch.Tensor, row, pos: torch.Tensor) -> torch.Tensor:
+    """The 32 bits at bit offset ``pos`` of row ``row`` of ``rows`` (u8
+    ``[R, M]``; ``row`` an index tensor shaped like ``pos``, or an int), as
+    int64 in [0, 2^32).  Bytes at or past the row's end read as 0."""
+    M = rows.shape[1]
+    byte = pos >> 3
+    win = torch.zeros_like(pos)
+    for k in range(5):
+        b = byte + k
+        inside = (b >= 0) & (b < M)
+        v = rows[row, b.clamp(0, M - 1)].to(torch.int64)
+        win = (win << 8) | torch.where(inside, v, torch.zeros_like(v))
+    return (win >> (8 - (pos & 7))) & 0xFFFFFFFF

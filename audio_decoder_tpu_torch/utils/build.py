@@ -5,9 +5,10 @@ interface loaded through ``ctypes``:
 
 * the CUDA kernels under ``audio_decoder_tpu_torch/csrc/``, with ``nvcc``
   for ``sm_90a`` (Hopper);
-* the host MP3 front-end, from the JAX package's own source file
-  ``audio_decoder_tpu/native/mp3fe.cc``, with ``g++``.  Reading that file
-  is not an import, so the port stays free of JAX.
+* the host front-ends under ``audio_decoder_tpu_torch/native/`` (the MP3
+  ``mp3fe`` and the FLAC ``flacfe``), with ``g++``.  mp3fe's Huffman
+  tables header is generated into the build directory first
+  (utils/gen_luts.py).
 
 Outputs go to ``audio_decoder_tpu_torch/build/`` (listed in .gitignore),
 named by a hash of the sources and the command, so a stale library is
@@ -29,6 +30,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+NATIVE_DIR = os.path.join(PKG_DIR, "native")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -39,6 +41,7 @@ GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-pthread"]
 BUILD_SECONDS: dict[str, float] = {}
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -55,10 +58,15 @@ def _digest(paths: list[str], cmd: list[str]) -> str:
 
 
 def build_shared(name: str, compiler: str, flags: list[str],
-                 sources: list[str], deps: tuple[str, ...] = ()) -> str:
-    """Compile ``sources`` into ``build/lib<name>-<hash>.so``; return its path."""
+                 sources: list[str], deps: tuple[str, ...] = (),
+                 include_dirs: tuple[str, ...] = ()) -> str:
+    """Compile ``sources`` into ``build/lib<name>-<hash>.so``; return its path.
+
+    The hash covers the command and the contents of ``sources`` and
+    ``deps`` (headers found through ``include_dirs``)."""
     cmd = [compiler] + flags
     out = os.path.join(BUILD_DIR, f"lib{name}-{_digest(sources + list(deps), cmd)}.so")
+    cmd = cmd + [f"-I{d}" for d in include_dirs]
     if os.path.exists(out):
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
@@ -93,8 +101,12 @@ def load_library(name: str, build, declare) -> ctypes.CDLL:
     """Build (once per process) and load a library.
 
     ``build()`` returns the library's path; ``declare(lib)`` sets the
-    ``argtypes``/``restype`` of its functions before anyone calls them."""
+    ``argtypes``/``restype`` of its functions before anyone calls them.
+    Each library has its own lock, so threads build different libraries
+    at the same time."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             path = build()

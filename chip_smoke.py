@@ -1,35 +1,53 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Builds every kernel of the main path from the repo's sources, holds each
-kernel against its plain torch twin at the main path's shapes, drives the
-main path (a mixed WAV + MP3 folder through ``decode_dir``) and checks its
-output, then times the mixed batch.  Phases:
+Builds every kernel of the port from the repo's sources, holds each kernel
+against its plain torch twin at its path's shapes, drives each path
+through ``decode_dir`` and checks its output, then times the paths.
+Phases:
 
   1. environment: torch, CUDA, nvcc and the card (fails without CUDA);
-  2. build: the entropy-scan and synthesis kernels (nvcc, sm_90a) and the
-     host MP3 front-end (g++);
-  3. kernels against their plain twins on the card: the entropy scan must
-     match exactly, the synthesis within atol 1e-4 / rtol 1e-5 (the sums
-     run in another order);
-  4. main path: 16 WAV (10 s, 44.1 kHz stereo 16-bit, from the seed) +
-     16 copies of the committed 10 s 128 kbps joint-stereo MP3 + the
+  2. build, all libraries at once: the entropy-scan, synthesis and
+     window-add kernels (nvcc, sm_90a) and the host MP3 and FLAC
+     front-ends (g++);
+  3. kernels against their plain twins on the card: the entropy scan (K1)
+     must match exactly, the synthesis (K2) within atol 1e-4 / rtol 1e-5
+     (the sums run in another order), at the WAV + MP3 path's shapes; the
+     window-add kernels K4 (FLAC values) and K3 (FLAC PCM) exactly, at the
+     16-file FLAC group's shapes.  Each is timed with CUDA events beside
+     its twin, its bound (bytes or operations at the card's peak) and,
+     for K3/K4, one ``index_add_`` call;
+  4. WAV + MP3 path: 16 WAV (10 s, 44.1 kHz stereo 16-bit, from the seed)
+     + 16 copies of the committed 10 s 128 kbps joint-stereo MP3 + the
      22.05 kHz mono LSF MP3 + one garbage .wav + one .xyz, decoded with
      ``decode_dir(folder, device="cuda")``; checks error codes, WAV PCM
      equal to src/32768, MP3 PCM within amplitude-scaled RMS 5e-7 of the
-     port's CPU path on the same bytes, and that both kernels launched;
-  5. rate: after one warm run, 3 timed runs of the mixed batch (decoded
-     audio-seconds per second; informational).
+     port's CPU path on the same bytes, and that K1 and K2 launched;
+  5. FLAC path: 16 copies of the committed 10 s 44.1 kHz stereo 16-bit
+     FLAC + the 3 s 48 kHz mono 24-bit FLAC + a corrupt .flac (random
+     bytes behind the fLaC marker) + a truncated copy, decoded with
+     ``decode_dir(folder, device="cuda")``; checks error codes against the
+     port's CPU path, every good file's PCM equal to the CPU path bit for
+     bit and its integers against the STREAMINFO MD5, and that K3 and K4
+     launched;
+  6. rates: after one warm run, 3 timed runs each of the WAV + MP3 folder,
+     16 FLAC files, and 16 WAV + 16 MP3 + 16 FLAC (decoded audio-seconds
+     per second; informational).
+
+With ``--profile`` it then profiles one decode of the 16 FLAC files with
+torch.profiler and prints each FLAC stage's host and device time (the
+full table goes to chiprun_out/flac_profile.txt).
 
 Every phase is fatal.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
 its power limit, and the line before that lists the kernels.
 
-Usage:  python3 chip_smoke.py [--seed N]
+Usage:  python3 chip_smoke.py [--seed N] [--profile]
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import shutil
@@ -46,10 +64,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port")
 STEREO_MP3 = os.path.join(FIXTURES, "stereo_44k1_128k_js.mp3")
 LSF_MP3 = os.path.join(FIXTURES, "mono_22k05_lsf.mp3")
-N_WAV = N_MP3 = 16
+MUSIC_FLAC = os.path.join(FIXTURES, "music_44k1_s16.flac")
+MONO24_FLAC = os.path.join(FIXTURES, "mono_48k_s24.flac")
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+N_WAV = N_MP3 = N_FLAC = 16
 SECONDS = 10.0
 RATE = 44100
 RMS_TOL = 5e-7  # float32 round-off bar of the MP3 tests, amplitude-scaled
+# the card's published peaks (H100 SXM data sheet): memory rate, and f32
+# outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -89,6 +114,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """Least milliseconds for the work at the card's peaks: the larger of
+    bytes moved over the memory rate and f32 operations over the f32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def wav_blob(pcm: np.ndarray, rate: int) -> bytes:
     data = pcm.astype("<i2").tobytes()
     ch = pcm.shape[1]
@@ -124,16 +161,21 @@ def _nvcc() -> str:
 
 
 def phase_build() -> None:
+    """Build every library at once, one compiler process each."""
+    from audio_decoder_tpu_torch.codecs.flac import native as flac_native
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel, native
-    from audio_decoder_tpu_torch.ops import synth_kernel
+    from audio_decoder_tpu_torch.ops import synth_kernel, window_add
     from audio_decoder_tpu_torch.utils import build
 
     t0 = time.perf_counter()
-    huffman_kernel.load_library()
-    synth_kernel.load_library()
-    native.probe(b"")  # builds + loads libmp3fe
+    loaders = (huffman_kernel.load_library, synth_kernel.load_library,
+               window_add.load_library, native._load, flac_native._load)
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
+        for f in [ex.submit(fn) for fn in loaders]:
+            f.result()  # a BuildError carries the compiler's output
     secs = {k: round(v, 3) for k, v in build.BUILD_SECONDS.items()}
-    log(f"build: {time.perf_counter() - t0:.3f} s total; per library {secs}")
+    log(f"build: {time.perf_counter() - t0:.3f} s total (in parallel); "
+        f"per library {secs}")
 
 
 def _main_path_group(dev):
@@ -212,7 +254,14 @@ def phase_kernels(dev) -> list[dict]:
 
     k1_ms = cuda_ms(run_k1, 20)
     k1_plain_ms = cuda_ms(run_k1_plain, 2)
-    log(f"K1 time: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+    # each input read once (the byte rows once for all buckets), each
+    # output written once
+    k1_bytes = nbytes(main) + sum(
+        nbytes(*lanes, *HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc))
+        for lanes, nb, nc in parts)
+    k1_bound, k1_by = bound(k1_bytes)
+    log(f"K1 time: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
+        f"bound {k1_bound:.4f} ms ({k1_bytes} bytes)")
 
     # --- K2: synthesis on the TS the same decode produces ---
     TS = dsp.fused_subband_samples(*args, perm, channels=ch, joint_stereo=joint,
@@ -229,17 +278,108 @@ def phase_kernels(dev) -> list[dict]:
         "(atol 1e-4, rtol 1e-5)")
     k2_ms = cuda_ms(lambda: SK.polyphase_synthesis_blocks(ts, c["synth_n"], c["g2"]), 50)
     k2_plain_ms = cuda_ms(lambda: SK.synthesis_plain(ts, c["synth_n"], c["g2"]), 20)
-    log(f"K2 time: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
+    # per row and step: the 32 -> 64 matrixing and the 16-tap FIR over 32
+    # outputs, 2 f32 operations per multiply-add
+    k2_flops = 2.0 * B * C * T * (64 * 32 + 16 * 32)
+    k2_bound, k2_by = bound(nbytes(ts, c["synth_n"], c["g2"], got), k2_flops)
+    log(f"K2 time: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, "
+        f"bound {k2_bound:.4f} ms ({k2_by}; {k2_flops:.4g} flop)")
     return [
         dict(name="mp3_entropy_scan", route="cuda",
              source="audio_decoder_tpu_torch/csrc/mp3_entropy.cu",
              replaces="audio_decoder_tpu/codecs/mpeg/huffman_pallas.py:335",
-             launches=0, max_abs_err=max_err, ms=k1_ms, plain_ms=k1_plain_ms),
+             launches=0, max_abs_err=max_err, ms=k1_ms, plain_ms=k1_plain_ms,
+             bound_ms=k1_bound, bound_by=k1_by, library_ms=None),
         dict(name="mp3_polyphase_synthesis", route="cuda",
              source="audio_decoder_tpu_torch/csrc/mp3_synth.cu",
              replaces="audio_decoder_tpu/ops/pallas_synth.py:50",
-             launches=0, max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms),
+             launches=0, max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+             bound_ms=k2_bound, bound_by=k2_by, library_ms=None),
     ]
+
+
+def _flac_windows(dev):
+    """The two window-add calls' inputs of the 16-file FLAC group, as the
+    FLAC path builds them (``stage="windows"`` of the device program)."""
+    from audio_decoder_tpu_torch.codecs.flac import decoder as FD
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from audio_decoder_tpu_torch.codecs.flac import frontend
+
+    blob = open(MUSIC_FLAC, "rb").read()
+    analyses = frontend.analyze_batch([blob] * N_FLAC)
+    for a in analyses:
+        if isinstance(a, Exception):
+            fail(f"the FLAC fixture does not walk: {a!r}")
+    args, statics = FD.pack_wire(analyses, dev)
+    log(f"FLAC group statics: {statics}")
+    return FV.flac_decode_wire(*args, stage="windows", **statics)
+
+
+def _index_add_call(sets, n_out: int):
+    """One ``index_add_`` computing the same window sum (indices and the
+    flat updates built here, outside the timed call)."""
+    idx, upd = [], []
+    for s, u in sets:
+        st = torch.cummax(s.to(torch.int64), 0).values
+        w = torch.arange(u.shape[1], dtype=torch.int64, device=u.device)
+        idx.append((st[:, None] + w).clamp_(max=n_out).reshape(-1))
+        upd.append(u.reshape(-1))
+    idx, upd = torch.cat(idx), torch.cat(upd)
+    dtype = sets[0][1].dtype
+    return lambda: torch.zeros((n_out + 1,), dtype=dtype,
+                               device=upd.device).index_add_(0, idx, upd)
+
+
+def phase_flac_kernels(dev) -> list[dict]:
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    w = _flac_windows(dev)
+    out = []
+    for name, tag, fn, plain, replaces in (
+            ("window_add2", "K4", PW.window_add2, PW.window_add2_plain,
+             "audio_decoder_tpu/ops/window_add.py:255"),
+            ("window_add", "K3", PW.window_add, PW.window_add_plain,
+             "audio_decoder_tpu/ops/window_add.py:215")):
+        *arrays, n_out = w[name]
+        sets = list(zip(arrays[0::2], arrays[1::2]))
+        got, ref = fn(*arrays, n_out), plain(*arrays, n_out)
+        lib = _index_add_call(sets, n_out)
+        torch.cuda.synchronize()
+        if got.dtype != ref.dtype or got.shape != ref.shape:
+            fail(f"{tag} {name}: {got.dtype} {tuple(got.shape)} vs the plain "
+                 f"twin's {ref.dtype} {tuple(ref.shape)}")
+        if not torch.equal(got, ref):
+            fail(f"{tag} {name} differs from its plain twin in "
+                 f"{int((got != ref).sum())} of {n_out} elements")
+        if not torch.equal(lib()[:n_out], ref):
+            fail(f"{tag}: index_add_ yardstick differs from the plain twin")
+        err = float((got.double() - ref.double()).abs().max()) if n_out else 0.0
+        shapes = ", ".join(f"starts {tuple(s.shape)} upd {tuple(u.shape)} "
+                           f"{u.dtype}" for s, u in sets)
+        log(f"{tag} {name}: exact match ({shapes}; n_out {n_out})")
+        ms = cuda_ms(lambda: fn(*arrays, n_out), 50)
+        plain_ms = cuda_ms(lambda: plain(*arrays, n_out), 20)
+        library_ms = cuda_ms(lib, 20)
+        b_ms, by = bound(nbytes(*arrays) + n_out * got.element_size())
+        # the same call without the tail of all-zero padding lanes, which
+        # the packers pile onto the last live start
+        live = []
+        for st, u in sets:
+            nz = torch.nonzero(u.reshape(u.shape[0], -1).ne(0).any(1))
+            n = int(nz.max()) + 1 if nz.numel() else 0
+            live += [st[:n], u[:n]]
+        live_ms = cuda_ms(lambda: fn(*live, n_out), 50)
+        log(f"{tag} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_add_ {library_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
+            f"kernel on the {[int(t.shape[0]) for t in live[::2]]} lanes "
+            f"before the zero tail {live_ms:.4f} ms")
+        out.append(dict(
+            name=name, route="cuda",
+            source="audio_decoder_tpu_torch/csrc/window_add.cu",
+            replaces=replaces,
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=by, library_ms=library_ms))
+    return out
 
 
 def write_folder(folder: str, seed: int) -> dict:
@@ -326,11 +466,76 @@ def phase_main_path(folder: str, wavs: dict, dev) -> tuple[dict, float]:
     return launches, float(batch.audio_seconds())
 
 
-def phase_rate(folder: str, card: str) -> None:
-    import audio_decoder_tpu_torch as adt
-    from audio_decoder_tpu_torch.io.assets import load_assets, scan_assets
+def write_flac_folder(folder: str, seed: int) -> dict:
+    """The FLAC folder; returns {stem: source path} of the good files."""
+    rng = np.random.default_rng(seed + 1)
+    for i in range(N_FLAC):
+        shutil.copyfile(MUSIC_FLAC, os.path.join(folder, f"g{i:02d}.flac"))
+    shutil.copyfile(MONO24_FLAC, os.path.join(folder, "mono24.flac"))
+    with open(os.path.join(folder, "corrupt.flac"), "wb") as f:
+        f.write(b"fLaC" + rng.integers(0, 256, size=8192).astype(np.uint8).tobytes())
+    music = open(MUSIC_FLAC, "rb").read()
+    with open(os.path.join(folder, "truncated.flac"), "wb") as f:
+        f.write(music[: len(music) // 2])
+    good = {f"g{i:02d}": MUSIC_FLAC for i in range(N_FLAC)}
+    good["mono24"] = MONO24_FLAC
+    return good
 
-    assets = load_assets(scan_assets(folder))
+
+def phase_flac_path(folder: str, good: dict, dev) -> dict:
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.codecs.flac import frontend
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    for k in PW.launches:
+        PW.launches[k] = 0
+    batch, names = adt.decode_dir(folder, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(PW.launches)
+    log(f"FLAC path launches: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched by the FLAC path")
+    if batch.data.device.type != dev.type or not torch.isfinite(batch.data).all():
+        fail(f"FLAC batch is not finite PCM on {dev}")
+
+    # the port's CPU path (plain twins) on the same bytes
+    paths = [os.path.join(folder, f"{n}.flac")
+             for n in ("mono24", "corrupt", "truncated")] + [MUSIC_FLAC]
+    ref = adt.decode_paths(paths, device="cpu")
+    ref_of = {"mono24": 0, "corrupt": 1, "truncated": 2}
+    err = batch.err.cpu().numpy()
+    checked = 0
+    for name in batch.names:
+        r = ref_of.get(name, 3)
+        code, want = int(err[names[name]]), int(ref.err[r])
+        if code != want:
+            fail(f"{name}.flac has error code {code}, the CPU path {want}")
+        if name == "corrupt" and code == 0:
+            fail("corrupt.flac decoded without an error code")
+        if name in good and code != 0:
+            fail(f"{name}.flac has error code {code}")
+        if code != 0:
+            continue
+        got, cpu = batch.file(names[name]), ref.file(r)
+        if got.pcm.shape != cpu.pcm.shape or not np.array_equal(got.pcm, cpu.pcm):
+            fail(f"{name}.flac PCM on the card differs from the CPU path")
+        if name not in good:
+            continue
+        an = frontend.analyze(open(good[name], "rb").read())
+        ints = np.round(got.pcm.astype(np.float64)
+                        * 2.0 ** (got.bits_per_sample - 1)).astype(np.int64)
+        if frontend.verify_md5(an, ints) is not True:
+            fail(f"{name}.flac fails its STREAMINFO MD5")
+        checked += 1
+    codes = {n: int(err[names[n]]) for n in ("corrupt", "truncated")}
+    log(f"FLAC: {checked} files equal the CPU path bit for bit and pass "
+        f"their STREAMINFO MD5; error codes {codes}")
+    return launches
+
+
+def _rate(label: str, assets, card: str) -> None:
+    import audio_decoder_tpu_torch as adt
 
     def run():
         b = adt.decode_assets(assets, device="cuda")
@@ -345,22 +550,104 @@ def phase_rate(folder: str, card: str) -> None:
         times.append(time.perf_counter() - t0)
     rates = [audio_s / t for t in times]
     log(f"rate: {audio_s:.3f} audio-s per batch; wall {times} s; "
-        f"decode_throughput_mixed {rates} audio-s/s  [{card}]")
+        f"{label} {rates} audio-s/s  [{card}]")
+
+
+def phase_rate(folder: str, flac_folder: str, card: str) -> None:
+    from audio_decoder_tpu_torch.io.assets import load_assets, scan_assets
+
+    mixed = load_assets(scan_assets(folder))
+    flac = load_assets(scan_assets(flac_folder))
+    flac16 = [a for a in flac if a.name.startswith("g")]
+    _rate("decode_throughput_mixed", mixed, card)
+    _rate("flac_only (16 FLAC)", flac16, card)
+    three = ([a for a in mixed if a.name.startswith("w")]
+             + [a for a in mixed if a.ext == "mp3" and a.name != "lsf"] + flac16)
+    if len(three) != N_WAV + N_MP3 + N_FLAC:
+        fail(f"the three-family batch has {len(three)} files")
+    _rate("wav_mp3_flac (16 + 16 + 16)", three, card)
+
+
+def phase_profile(flac_folder: str, card: str) -> None:
+    """torch.profiler over one decode of the 16 FLAC files: host and device
+    milliseconds of each FLAC stage span, and the device's idle share."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.io.assets import load_assets, scan_assets
+    from torch.profiler import ProfilerActivity, profile
+
+    assets = [a for a in load_assets(scan_assets(flac_folder))
+              if a.name.startswith("g")]
+    adt.decode_assets(assets, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        adt.decode_assets(assets, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e, self_only=False):
+        name = "self_device_time_total" if self_only else "device_time_total"
+        legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
+        return getattr(e, name, None) or getattr(e, legacy, 0.0)
+
+    rows = prof.key_averages()
+    busy = sum(dev_us(e, True) for e in rows if not e.key.startswith("flac."))
+    log(f"profile: wall {wall * 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"(idle share {1 - busy / 1e3 / (wall * 1e3):.3f})  [{card}]")
+    for e in sorted((e for e in rows if e.key.startswith("flac.")),
+                    key=lambda e: e.key):
+        log(f"profile span {e.key}: calls {e.count}, host "
+            f"{e.cpu_time_total / 1e3:.3f} ms, device {dev_us(e) / 1e3:.3f} ms")
+    # the window-add wrappers alone: which of their launches takes the time
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    w = _flac_windows(torch.device("cuda"))
+    calls = ((PW.window_add2, w["window_add2"]), (PW.window_add, w["window_add"]))
+    for fn, a in calls:
+        fn(*a)
+    torch.cuda.synchronize()
+    reps = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as kprof:
+        for fn, a in calls:
+            for _ in range(reps):
+                fn(*a)
+        torch.cuda.synchronize()
+    krows = sorted((e for e in kprof.key_averages() if dev_us(e, True) > 0),
+                   key=lambda e: -dev_us(e, True))
+    for e in krows[:12]:
+        log(f"profile window-add kernel {e.key[:60]}: calls {e.count}, device "
+            f"{dev_us(e, True) / e.count / 1e3:.4f} ms per call  [{card}]")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "flac_profile.txt")
+    with open(path, "w") as f:
+        f.write(f"{card}\n")
+        f.write(rows.table(sort_by="self_device_time_total", row_limit=60))
+        f.write("\nwindow-add wrappers, 10 calls each\n")
+        f.write(kprof.key_averages().table(sort_by="self_device_time_total",
+                                           row_limit=30))
+    log(f"profile table: {path}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one FLAC decode after the other phases")
     args = ap.parse_args()
 
     card = phase_environment()
     phase_build()
     dev = torch.device("cuda")
-    kernels = phase_kernels(dev)
-    with tempfile.TemporaryDirectory(prefix="adt_smoke_") as folder:
+    kernels = phase_kernels(dev) + phase_flac_kernels(dev)
+    with tempfile.TemporaryDirectory(prefix="adt_smoke_") as folder, \
+            tempfile.TemporaryDirectory(prefix="adt_smoke_flac_") as flac_folder:
         wavs = write_folder(folder, args.seed)
         launches, _ = phase_main_path(folder, wavs, dev)
-        phase_rate(folder, card)
+        good = write_flac_folder(flac_folder, args.seed)
+        launches.update(phase_flac_path(flac_folder, good, dev))
+        phase_rate(folder, flac_folder, card)
+        if args.profile:
+            phase_profile(flac_folder, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,9 @@ under tests/data/torch_port/.  On the GPU machine run it without the
 suite's JAX conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+``window_case`` also serves the CPU tests of the window-add twins
+(tests/test_torch_window_add.py), so both hold the same cases.
 """
 
 import os
@@ -20,8 +23,12 @@ from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
 from audio_decoder_tpu_torch.codecs.mpeg import dsp
 from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
 from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+from audio_decoder_tpu_torch.codecs.flac import decoder as FD
+from audio_decoder_tpu_torch.codecs.flac import device as FV
+from audio_decoder_tpu_torch.codecs.flac import frontend as FF
 from audio_decoder_tpu_torch.codecs.mpeg import native
 from audio_decoder_tpu_torch.ops import synth_kernel as SK
+from audio_decoder_tpu_torch.ops import window_add as PW
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +36,40 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 FIXTURES = [os.path.join(DATA, f) for f in ("stereo_44k1_128k_js.mp3",
                                             "mono_22k05_lsf.mp3")]
+FLAC_FIXTURES = [os.path.join(DATA, f) for f in ("music_44k1_s16.flac",
+                                                 "mono_48k_s24.flac")]
+
+#: (seed, L, W, n_live) of the int32 window-add cases
+WINDOW_CASES = [
+    (0, 64, 8, 50),        # tiny widths (fixed-width warmup shape)
+    (1, 256, 96, 200),     # W not a multiple of 512
+    (2, 512, 512, 512),    # rice shape, no padding lanes
+    (3, 300, 520, 211),    # W just past one TPU sublane row
+    (4, 40, 1536, 17),     # multi-row windows
+]
+#: the TPU kernel's output tile (ops/window_add.py TILE_R * 512 there)
+TPU_TILE = 256 * 512
+
+
+def window_case(rng, L, W, n_live, tile_elems=512, dtype=np.int32):
+    """Random windows with the FLAC contract: live windows tile [0, X)
+    contiguously in lane order, updates past each live count are zero, and
+    the padding lanes at the tail carry start 0 and zero updates."""
+    counts = rng.integers(0, W + 1, size=n_live)
+    starts = np.zeros(L, np.int32)
+    at = 0
+    for i in range(n_live):
+        starts[i] = at
+        at += int(counts[i])
+    n_out = at + W + rng.integers(0, 3 * tile_elems)
+    if dtype == np.int32:
+        upd = rng.integers(-10**6, 10**6, size=(L, W)).astype(dtype)
+    else:
+        upd = rng.standard_normal((L, W)).astype(dtype)
+    live = np.arange(W)[None, :] < counts[:, None]
+    upd[:n_live] = np.where(live, upd[:n_live], 0)
+    upd[n_live:] = 0
+    return starts, upd, int(n_out)
 
 
 @pytest.fixture
@@ -150,3 +191,104 @@ def test_decode_paths_cuda_matches_cpu(cuda_device):
         rms = float(np.sqrt(((ref - got) ** 2).mean()))
         bar = 5e-7 * max(1.0, float(np.sqrt((ref ** 2).mean())) / 0.2)
         assert rms < bar, (i, rms, bar)
+
+
+def _on(dev, *arrays):
+    return [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in arrays]
+
+
+def _window_cases():
+    """(id, starts, upd, n_out): the CPU tests' cases plus the kernel's own
+    edges — tile boundaries, a pile-up of padding lanes on one start that
+    spreads one tile over many blocks, truncation, no lanes."""
+    cases = []
+    for seed, L, W, n_live in WINDOW_CASES:
+        cases.append((f"i32-{seed}", *window_case(np.random.default_rng(seed),
+                                                  L, W, n_live)))
+    cases.append(("f32-frames", *window_case(np.random.default_rng(7), 48, 2048,
+                                             31, dtype=np.float32)))
+    rng = np.random.default_rng(11)
+    for tile in (4096, TPU_TILE):
+        starts = np.asarray([0, tile - 100, tile - 1, 2 * tile - 511], np.int32)
+        cases.append((f"tile-{tile}", starts,
+                      rng.integers(-9, 9, size=(4, 512)).astype(np.int32),
+                      2 * tile + 512))
+    cases.append(("pile-up", *window_case(np.random.default_rng(12), 12000,
+                                          256, 300)))
+    cases.append(("truncated", np.asarray([0, 6, 9], np.int32),
+                  np.arange(1, 13, dtype=np.int32).reshape(3, 4), 11))
+    cases.append(("repointed", np.asarray([0, 10, 5, 0], np.int32),
+                  np.arange(1, 17, dtype=np.int32).reshape(4, 4), 20))
+    cases.append(("no-lanes", np.zeros(0, np.int32),
+                  np.zeros((0, 16), np.int32), 100))
+    return cases
+
+
+@pytest.mark.parametrize("case", _window_cases(), ids=lambda c: c[0])
+def test_window_add_kernel_matches_plain(cuda_device, case):
+    _, starts, upd, n_out = case
+    s, u = _on(cuda_device, starts, upd)
+    before = PW.launches["window_add"]
+    got = PW.window_add(s, u, n_out)
+    assert PW.launches["window_add"] == before + 1
+    ref = PW.window_add_plain(s, u, n_out)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("seed,Wa,Wb", [(5, 256, 8), (6, 520, 96), (8, 4096, 8)])
+def test_window_add2_kernel_matches_plain(cuda_device, seed, Wa, Wb):
+    rng = np.random.default_rng(seed)
+    sa, ua, na = window_case(rng, 192, Wa, 150)
+    sb, ub, nb = window_case(rng, 64, Wb, 40)
+    n_out = max(na, nb)
+    args = _on(cuda_device, sa, ua, sb, ub)
+    before = PW.launches["window_add2"]
+    got = PW.window_add2(*args, n_out)
+    assert PW.launches["window_add2"] == before + 1
+    ref = PW.window_add2_plain(*args, n_out)
+    two = (PW.window_add_plain(args[0], args[1], n_out)
+           + PW.window_add_plain(args[2], args[3], n_out))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, two)
+
+
+def test_window_add_kernels_at_the_flac_group_shapes(cuda_device):
+    """K4 and K3 on the 16-file FLAC group's own inputs (value assembly
+    int32 [65536, 256] + [4096, 8], PCM assembly f32 [2048, 8192])."""
+    blob = open(FLAC_FIXTURES[0], "rb").read()
+    args, st = FD.pack_wire(FF.analyze_batch([blob] * 16), cuda_device)
+    w = FV.flac_decode_wire(*args, stage="windows", **st)
+    assert tuple(w["window_add2"][1].shape) == (65536, 256)
+    assert tuple(w["window_add"][1].shape) == (2048, 8192)
+    for fn, plain, key in ((PW.window_add2, PW.window_add2_plain, "window_add2"),
+                           (PW.window_add, PW.window_add_plain, "window_add")):
+        got, ref = fn(*w[key]), plain(*w[key])
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), key
+
+
+def test_window_add_rejects_bad_inputs(cuda_device):
+    s, u = _on(cuda_device, np.zeros(4, np.int32), np.zeros((4, 8), np.int32))
+    with pytest.raises(ValueError, match="int32"):
+        PW.window_add(s.to(torch.int64), u, 16)
+    with pytest.raises(ValueError, match="int32 or float32"):
+        PW.window_add(s, u.to(torch.float64), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        PW.window_add(s, u.t().contiguous().t(), 16)
+    with pytest.raises(ValueError, match="one dtype"):
+        PW.window_add2(s, u, s, u.to(torch.float32), 16)
+
+
+def test_flac_decode_paths_cuda_matches_cpu(cuda_device):
+    """Both FLAC fixtures (narrow and wide rice scan) decode on the card bit
+    for bit as on the CPU, through K3 and K4."""
+    before = dict(PW.launches)
+    gpu = decode_paths(FLAC_FIXTURES, device=cuda_device)
+    assert all(PW.launches[k] > before[k] for k in before)
+    cpu = decode_paths(FLAC_FIXTURES, device="cpu")
+    assert gpu.names == cpu.names
+    for k in ("sample_rate", "num_channels", "bits_per_sample",
+              "valid_frames", "err"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    assert torch.equal(gpu.data.cpu(), cpu.data)

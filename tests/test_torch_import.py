@@ -1,6 +1,7 @@
-"""PyTorch port: imports without JAX, and carries the JAX package's
-constant tables exactly."""
+"""PyTorch port: imports without JAX, builds from its own sources, and
+carries the JAX package's constant tables exactly."""
 
+import ast
 import os
 import pathlib
 import re
@@ -44,6 +45,70 @@ def test_sources_never_import_jax():
     hits = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
             if pat.search(p.read_text())]
     assert hits == []
+
+
+def _docstrings(tree: ast.AST) -> set[int]:
+    """ids of the string constants that are docstrings."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                out.add(id(first.value))
+    return out
+
+
+#: a ``file:line`` citation of a TPU kernel (chip_smoke.py's ``replaces``)
+_CITATION = re.compile(r"audio_decoder_tpu/[\w/]+\.py:\d+")
+
+
+def _paths_into_jax_package(path: pathlib.Path) -> list[str]:
+    """String constants in a Python file that name a path inside the JAX
+    package (docstrings, ``file:line`` citations of the TPU kernels and the
+    comment lines of generated C headers aside)."""
+    tree = ast.parse(path.read_text())
+    allowed = _docstrings(tree)
+    hits = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in allowed and not node.value.startswith("//")
+                and not _CITATION.fullmatch(node.value)
+                and re.search(r"\baudio_decoder_tpu(/|$)", node.value)):
+            hits.append(f"{path.relative_to(REPO)}:{node.lineno}: {node.value!r}")
+    return hits
+
+
+def test_no_path_into_the_jax_package():
+    """The port builds and reads only its own files: no string in its
+    package or in chip_smoke.py names a path inside audio_decoder_tpu/
+    (chip_smoke.py cites each TPU kernel's file:line in ``replaces``)."""
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [h for p in files for h in _paths_into_jax_package(p)]
+    assert hits == []
+
+
+@pytest.mark.parametrize("name", ["mp3fe.cc", "flacfe.cc"])
+def test_native_sources_are_copies(name):
+    """The port's C++ front-ends equal the JAX package's sources once the
+    first line, which names the source, is removed."""
+    mine = (PKG / "native" / name).read_bytes()
+    first, rest = mine.split(b"\n", 1)
+    assert first.startswith(b"// ") and f"audio_decoder_tpu/native/{name}".encode() in first
+    assert rest == (REPO / "audio_decoder_tpu" / "native" / name).read_bytes()
+
+
+def test_generated_huffman_header_equals_the_committed_one(tmp_path):
+    """utils/gen_luts writes huffman_lut.h from the port's own tables, byte
+    for byte the JAX package's committed header."""
+    from audio_decoder_tpu_torch.utils import gen_luts
+
+    path = gen_luts.huffman_lut_header(str(tmp_path))
+    assert path.startswith(str(tmp_path))
+    ref = (REPO / "audio_decoder_tpu" / "native" / "huffman_lut.h").read_bytes()
+    assert pathlib.Path(path).read_bytes() == ref
+    assert gen_luts.huffman_lut_header(str(tmp_path)) == path  # reused
 
 
 def _jax_constants() -> dict:
