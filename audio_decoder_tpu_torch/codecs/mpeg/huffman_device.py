@@ -14,6 +14,8 @@ triple, bit for bit:
   for CPU tensors and is the reference the CUDA kernel is held to.
 * the CUDA kernel ``csrc/mp3_entropy.cu``, one thread per lane, behind
   the wrapper ``huffman_kernel.entropy_scan``, which runs for CUDA tensors.
+  It looks codes up in ``_two_level_big_luts``, the same codes as the flat
+  LUT in a form that fits in shared memory.
 
 Both follow the JAX package's XLA scan (``decode_spectra(impl="xla")``):
 big-values pairs beyond 288 are decoded for their bit consumption but not
@@ -61,6 +63,57 @@ def _flat_big_luts():
 
 _BIGLUT, _BIG_BASE, _BIG_WIDTH = _flat_big_luts()
 
+#: bits of the CUDA kernel's first-level lookup (csrc/mp3_entropy.cu kL1Bits)
+L1_BITS = 10
+#: a first-level entry with this bit set points into the second level
+SUB_FLAG = 0x8000
+
+
+def _two_level_big_luts():
+    """The big-values tables as two lookup levels small enough for shared
+    memory (the flat LUT's tables 13 and 16 alone need 2^19 + 2^17 entries).
+
+    Each table gets a first level indexed by its top ``min(width, 10)``
+    bits.  An entry is either the flat LUT's ``len<<8 | x<<4 | y`` (0 for a
+    bad code) or, where only codes longer than 10 bits start with those 10
+    bits, ``SUB_FLAG | offset<<4 | s``: the next ``s`` bits index the
+    subtable at ``offset`` in the second level, which follows every first
+    level in the returned array.  Returns (u16 table, per-table-id first
+    level base, number of first-level entries)."""
+    first, second = [], []
+    base = np.zeros(33, np.int32)
+    n1 = n2 = 0
+    for t in sorted(HT.BIG_TABLES):
+        codes = HT.BIG_TABLES[t]
+        w1 = min(max(ln for (ln, _c) in codes.values()), L1_BITS)
+        lvl = np.zeros(1 << w1, np.uint16)
+        longer: dict[int, list] = {}
+        for (x, y), (ln, code) in codes.items():
+            e = (ln << 8) | (x << 4) | y
+            if ln <= w1:
+                lvl[code << (w1 - ln):(code + 1) << (w1 - ln)] = e
+            else:
+                rest = ln - w1
+                longer.setdefault(code >> rest, []).append(
+                    (rest, code & ((1 << rest) - 1), e))
+        for prefix, tails in sorted(longer.items()):
+            s = max(rest for rest, _c, _e in tails)
+            sub = np.zeros(1 << s, np.uint16)
+            for rest, code, e in tails:
+                sub[code << (s - rest):(code + 1) << (s - rest)] = e
+            if s > 15 or n2 >= 1 << 11:
+                raise ValueError("second level outgrows its 11-bit offsets")
+            lvl[prefix] = SUB_FLAG | (n2 << 4) | s
+            second.append(sub)
+            n2 += sub.size
+        base[t] = n1
+        first.append(lvl)
+        n1 += lvl.size
+    return np.concatenate(first + second), base, n1
+
+
+_LUT2, _L1_BASE, _L1_ENTRIES = _two_level_big_luts()
+
 _KTID = np.array([max(HT.TABLE_INFO[i][0], 0) for i in range(32)], np.int32)
 _KTID_RESERVED = np.array(
     [1 if HT.TABLE_INFO[i][0] < 0 else 0 for i in range(32)], np.int32
@@ -107,6 +160,38 @@ def _c1_canonical_consts():
 _C1_LO4, _C1_LO5, _C1_NIB4, _C1_NIB5, _C1_NIB6 = _c1_canonical_consts()
 
 
+def _count1_lut() -> np.ndarray:
+    """Count1 quads as one lookup per 10-bit window (the longest code plus
+    its signs), for the CUDA kernel: u16 [2, 1024] by select, entry =
+    ``o<<8 | signs`` where ``o`` is the bits the quad takes and bits 2k and
+    2k+1 of ``signs`` say value k is nonzero and negative.  Built by the
+    threshold rule the plain scan uses."""
+    lut = np.zeros((2, 1024), np.uint16)
+    for sel in (0, 1):
+        for w10 in range(1024):
+            top4 = w10 >> 6
+            if sel:
+                v, o = (~top4) & 15, 4
+            elif w10 >> 9:
+                v, o = 0, 1
+            elif top4 >= _C1_LO4:
+                v, o = (_C1_NIB4 >> (4 * (top4 - _C1_LO4))) & 15, 4
+            elif (w10 >> 5) >= _C1_LO5:
+                v, o = (_C1_NIB5 >> (4 * ((w10 >> 5) - _C1_LO5))) & 15, 5
+            else:
+                v, o = (_C1_NIB6 >> (4 * (w10 >> 4))) & 15, 6
+            signs = 0
+            for k in range(4):
+                if (v >> (3 - k)) & 1:
+                    signs |= (1 | ((w10 >> (9 - o)) & 1) << 1) << (2 * k)
+                    o += 1
+            lut[sel, w10] = (o << 8) | signs
+    return lut
+
+
+_C1_LUT = _count1_lut()
+
+
 def _reorder_perms():
     """Short-block reorder permutations in gather form out = in[perm],
     [9 rates, 3 cfgs, 576]; cfg 0 (long) rows are identity."""
@@ -141,6 +226,9 @@ def device_tables(device) -> dict:
         t = dict(
             biglut=put(_BIGLUT.view(np.int16), torch.int16),
             big_base=put(_BIG_BASE),
+            lut2=put(_LUT2.view(np.int16), torch.int16),
+            l1_base=put(_L1_BASE),
+            c1lut=put(_C1_LUT.view(np.int16), torch.int16),
             big_width=put(_BIG_WIDTH),
             ktid=put(_KTID),
             klin=put(_KLIN),

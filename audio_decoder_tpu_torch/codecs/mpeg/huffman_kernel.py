@@ -27,8 +27,7 @@ _LANE_ARGS = ("file_idx", "start_bit", "end_bit", "limit_bit", "big_values",
 def _declare(lib: C.CDLL) -> None:
     fn = lib.mp3_entropy_scan
     p, i = C.c_void_p, C.c_int
-    fn.argtypes = ([p, i, i] + [p] * 10 + [p] * 6 + [i] * 5
-                   + [C.c_longlong] * 3 + [p] * 4)
+    fn.argtypes = [p, i, i] + [p] * 10 + [p] * 7 + [i] * 3 + [p] * 4
     fn.restype = C.c_int
 
 
@@ -71,11 +70,10 @@ def _scan_cuda(main_u8, lanes: dict, tsel, n_big: int, n_c1: int):
         main_u8.data_ptr(), main_u8.shape[0], main_u8.shape[1],
         *[lanes[k].data_ptr() for k in _LANE_ARGS[:7]], tsel.data_ptr(),
         lanes["c1sel"].data_ptr(), lanes["valid"].data_ptr(),
-        tb["biglut"].data_ptr(), tb["big_base"].data_ptr(),
-        tb["big_width"].data_ptr(), tb["ktid"].data_ptr(),
-        tb["klin"].data_ptr(), tb["kres"].data_ptr(),
+        tb["lut2"].data_ptr(), tb["l1_base"].data_ptr(),
+        tb["c1lut"].data_ptr(), tb["big_width"].data_ptr(),
+        tb["ktid"].data_ptr(), tb["klin"].data_ptr(), tb["kres"].data_ptr(),
         n, min(max(n_big, 1), 512), HD.count1_quads(n_c1),
-        HD._C1_LO4, HD._C1_LO5, HD._C1_NIB4, HD._C1_NIB5, HD._C1_NIB6,
         big576.data_ptr(), c1.data_ptr(), fail.data_ptr(), stream,
     )
     if rc != 0:

@@ -15,7 +15,9 @@ Phases:
      window-add kernels K4 (FLAC values) and K3 (FLAC PCM) exactly, at the
      16-file FLAC group's shapes.  Each is timed with CUDA events beside
      its twin, its bound (bytes or operations at the card's peak) and,
-     for K3/K4, one ``index_add_`` call;
+     for K3/K4, one ``index_add_`` call, all in milliseconds per launch
+     (K1 runs one launch per bucket of the group; the phase prints the
+     launches per pass and the longest lane's serial chain of codes);
   4. WAV + MP3 path: 16 WAV (10 s, 44.1 kHz stereo 16-bit, from the seed)
      + 16 copies of the committed 10 s 128 kbps joint-stereo MP3 + the
      22.05 kHz mono LSF MP3 + one garbage .wav + one .xyz, decoded with
@@ -215,6 +217,79 @@ def _scan_inputs(args, perm, buckets):
     return main, out
 
 
+def _lane_walk(bits, lane, n_big: int, n_quads: int) -> tuple[int, int]:
+    """(pairs, quads) one lane of the entropy scan decodes, walked serially
+    on the host with the scan's rules (huffman_device.scan_plain)."""
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
+
+    start, end, limit, bv, ra, rb, tsel, c1sel, valid = lane
+    if valid <= 0:
+        return 0, 0
+
+    def peek(pos: int, n: int) -> int:  # bits outside the row read as 0
+        v = 0
+        for j in range(pos, pos + n):
+            v = (v << 1) | (int(bits[j]) if 0 <= j < len(bits) else 0)
+        return v
+
+    pos, pairs = start, 0
+    for p in range(min(bv, n_big)):
+        region = (2 * p >= ra) + (2 * p >= rb)
+        t = min(max(tsel[region], 0), 31)
+        tid, lb = int(HD._KTID[t]), int(HD._KLIN[t])
+        pairs += 1
+        w = int(HD._BIG_WIDTH[tid])
+        if w:
+            e = int(HD._BIGLUT[HD._BIG_BASE[tid] + peek(pos, w)])
+            ln, x, y = e >> 8, (e >> 4) & 15, e & 15
+            pos += ln + (lb if x == 15 and lb else 0) + (x > 0) \
+                + (lb if y == 15 and lb else 0) + (y > 0)
+            if ln == 0:
+                return pairs, 0
+        if HD._KTID_RESERVED[t] or pos > end:
+            return pairs, 0
+    idx0 = min(2 * bv, 576)
+    quads = 0
+    while quads < n_quads and pos < end and idx0 + 4 * quads < 576:
+        quads += 1
+        o = int(HD._C1_LUT[int(c1sel > 0), peek(pos, 10)]) >> 8
+        if pos + o > limit:
+            break
+        pos += o
+    return pairs, quads
+
+
+def _longest_lane(main, parts) -> tuple[int, int]:
+    """(pairs, quads) of the lane with the most codes in the pass: lanes
+    are walked in descending order of the most codes their side info
+    allows, until no unwalked lane can beat the best walk."""
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
+
+    rows = np.unpackbits(main.cpu().numpy(), axis=1)
+    cands = []
+    for lanes, nb, nc in parts:
+        cols = [a.cpu().numpy() for a in lanes]
+        fidx, start, end, limit, bv, ra, rb, tsel, c1sel, valid = cols
+        nb, nq = min(max(nb, 1), 512), HD.count1_quads(nc)
+        for i in range(len(bv)):
+            b = int(bv[i])
+            most = (max(min(b, nb), 0)
+                    + min(nq, max(0, -(-(576 - min(2 * b, 576)) // 4))))
+            lane = (int(start[i]), int(end[i]), int(limit[i]), b, int(ra[i]),
+                    int(rb[i]), [int(x) for x in tsel[i]], int(c1sel[i]),
+                    int(valid[i]))
+            cands.append((most if valid[i] > 0 else 0, int(fidx[i]), lane, nb, nq))
+    cands.sort(key=lambda c: -c[0])
+    best = (0, 0)
+    for most, f, lane, nb, nq in cands:
+        if most <= sum(best):
+            break
+        got = _lane_walk(rows[min(max(f, 0), len(rows) - 1)], lane, nb, nq)
+        if sum(got) > sum(best):
+            best = got
+    return best
+
+
 def phase_kernels(dev) -> list[dict]:
     from audio_decoder_tpu_torch.codecs.mpeg import dsp
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
@@ -252,16 +327,23 @@ def phase_kernels(dev) -> list[dict]:
         for lanes, nb, nc in parts:
             HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc)
 
-    k1_ms = cuda_ms(run_k1, 20)
-    k1_plain_ms = cuda_ms(run_k1_plain, 2)
+    # one pass is one launch per bucket; every K1 number is per launch
+    n_k1 = len(parts)
+    k1_ms = cuda_ms(run_k1, 20) / n_k1
+    k1_plain_ms = cuda_ms(run_k1_plain, 2) / n_k1
     # each input read once (the byte rows once for all buckets), each
     # output written once
     k1_bytes = nbytes(main) + sum(
         nbytes(*lanes, *HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc))
         for lanes, nb, nc in parts)
-    k1_bound, k1_by = bound(k1_bytes)
-    log(f"K1 time: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
-        f"bound {k1_bound:.4f} ms ({k1_bytes} bytes)")
+    k1_bound, k1_by = bound(k1_bytes / n_k1)
+    log(f"K1 time: {n_k1} launches per pass; per launch kernel {k1_ms:.4f} "
+        f"ms, plain {k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms "
+        f"({k1_bytes} bytes per pass)")
+    pairs, quads = _longest_lane(main, parts)
+    log(f"K1 serial chain: the longest lane decodes {pairs + quads} codes "
+        f"({pairs} big-values pairs + {quads} count1 quads), one after the "
+        "other")
 
     # --- K2: synthesis on the TS the same decode produces ---
     TS = dsp.fused_subband_samples(*args, perm, channels=ch, joint_stereo=joint,

@@ -23,6 +23,7 @@ from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
 from audio_decoder_tpu_torch.codecs.mpeg import dsp
 from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
 from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+from audio_decoder_tpu_torch.codecs.mpeg import huffman_tables as HT
 from audio_decoder_tpu_torch.codecs.flac import decoder as FD
 from audio_decoder_tpu_torch.codecs.flac import device as FV
 from audio_decoder_tpu_torch.codecs.flac import frontend as FF
@@ -140,6 +141,83 @@ def test_entropy_kernel_matches_plain_on_random_lanes(cuda_device, seed):
         assert 0 < int(got[2].sum()) < n
 
 
+def _random_scan_args(rng, dev, main, n, start, tables, span=3000):
+    """Scan arguments for ``n`` lanes on the rows of ``main`` (a u8 [B, M]
+    tensor, possibly a view), starting at ``start`` and ending up to
+    ``span`` bits later, with every region's table drawn from ``tables``."""
+    end = start + rng.integers(0, span, size=n)
+    limit = end + rng.integers(0, 300, size=n)
+    r1 = rng.integers(0, 577, size=n)
+    cols = [rng.integers(0, main.shape[0], size=n), start, end, limit,
+            rng.integers(0, 400, size=n), r1, rng.integers(0, 577, size=n),
+            rng.choice(tables, size=(n, 3)), rng.integers(0, 2, size=n),
+            np.ones(n)]
+    return [main] + [torch.as_tensor(np.ascontiguousarray(c, np.int32), device=dev)
+                     for c in cols]
+
+
+def test_entropy_kernel_lanes_reaching_the_row_end(cuda_device):
+    """An odd row width on a base that is not 16-byte aligned, lanes that
+    start in the last bytes of their row, past it and before it: the
+    kernel's 16-byte chunks there are assembled byte by byte, and bytes
+    outside the row read as 0, as in the plain scan."""
+    rng = np.random.default_rng(31)
+    files, width, n = 3, 1001, 2048
+    flat = torch.as_tensor(rng.integers(0, 256, size=files * width + 5,
+                                        dtype=np.uint8), device=cuda_device)
+    main = flat[5:].view(files, width)
+    assert main.data_ptr() % 16 != 0
+    start = rng.integers(8 * (width - 200), 8 * width + 64, size=n)
+    start[:16] = rng.integers(-64, 0, size=16)
+    args = _random_scan_args(rng, cuda_device, main, n, start,
+                             [1, 7, 13, 15, 16, 23, 24, 31])
+    got = HK.entropy_scan(*args)
+    ref = HD.scan_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert 0 < int(got[2].sum()) < n
+
+
+def test_entropy_kernel_lanes_longer_than_a_staging_slot(cuda_device):
+    """Spans of up to 12,000 bits, past the 4,095 of part2_3 and past the
+    kernel's 544-byte staging slot per lane: such lanes read their bits
+    from global memory instead, with the same results."""
+    rng = np.random.default_rng(37)
+    n = 512
+    main = torch.as_tensor(rng.integers(0, 256, size=(2, 4096), dtype=np.uint8),
+                           device=cuda_device)
+    start = rng.integers(0, 8 * 2048, size=n)
+    args = _random_scan_args(rng, cuda_device, main, n, start, [1, 5, 12, 15],
+                             span=12000)
+    got = HK.entropy_scan(*args, n_big=512, n_c1=144)
+    ref = HD.scan_plain(*args, n_big=512, n_c1=144)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    unstaged = (args[3] - args[2]).cpu().numpy() > 4400
+    assert unstaged.sum() > 100 and not got[2].cpu()[torch.as_tensor(unstaged)].all()
+
+
+@pytest.mark.parametrize("table", [13, 15, 16, 24])
+def test_entropy_kernel_codes_longer_than_the_first_level(cuda_device, table):
+    """Random bytes under the tables whose codes outgrow the 10-bit first
+    level: some pairs decode through a second-level subtable (values that
+    only codes longer than 10 bits carry), and every lane matches."""
+    rng = np.random.default_rng(table)
+    n = 1024
+    main = torch.as_tensor(rng.integers(0, 256, size=(2, 16384), dtype=np.uint8),
+                           device=cuda_device)
+    start = rng.integers(0, 8 * 12000, size=n)
+    args = _random_scan_args(rng, cuda_device, main, n, start, [table])
+    got = HK.entropy_scan(*args, n_big=512, n_c1=144)
+    ref = HD.scan_plain(*args, n_big=512, n_c1=144)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    long_xy = {xy for xy, (ln, _c) in HT.BIG_TABLES[table].items()
+               if ln > HD.L1_BITS and 0 < min(xy) and max(xy) < 15}
+    pairs = got[0].reshape(n, 288, 2).abs().cpu().numpy().reshape(-1, 2)
+    assert any(tuple(p) in long_xy for p in pairs)
+
+
 def test_entropy_kernel_reserved_and_invalid_lanes(cuda_device):
     args = _lanes(FIXTURES[0], cuda_device)
     tsel, valid = args[8].clone(), args[10].clone()
@@ -155,7 +233,8 @@ def test_entropy_kernel_reserved_and_invalid_lanes(cuda_device):
     assert bool(got[2][live[0]]) and bool(got[2][live[2]])
 
 
-@pytest.mark.parametrize("T", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 513,
+                               1000])
 def test_synthesis_kernel_matches_plain(cuda_device, T):
     rng = np.random.default_rng(T)
     c = dsp._consts(cuda_device)
@@ -166,6 +245,31 @@ def test_synthesis_kernel_matches_plain(cuda_device, T):
     assert SK.launches == before + 1
     ref = SK.synthesis_plain(ts, c["synth_n"], c["g2"])
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+def test_synthesis_kernel_on_an_unaligned_view(cuda_device):
+    """TS one float into its storage (not 16-byte aligned): the wrapper
+    copies it, the kernel reads 16-byte words."""
+    rng = np.random.default_rng(5)
+    c = dsp._consts(cuda_device)
+    flat = torch.as_tensor(rng.standard_normal(4 * 300 * 32 + 1).astype(np.float32),
+                           device=cuda_device)
+    ts = flat[1:].view(4, 300, 32)
+    assert ts.data_ptr() % 16 != 0
+    got = SK.polyphase_synthesis_blocks(ts, c["synth_n"], c["g2"])
+    ref = SK.synthesis_plain(ts, c["synth_n"], c["g2"])
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+def test_synthesis_wrapper_refuses_a_matrix_without_the_symmetry(cuda_device):
+    c = dsp._consts(cuda_device)
+    ts = torch.zeros((2, 8, 32), device=cuda_device)
+    n_mat = c["synth_n"].clone()
+    n_mat[5, 7] += 0.5
+    with pytest.raises(ValueError, match="symmetry"):
+        SK.polyphase_synthesis_blocks(ts, n_mat, c["g2"])
+    n_mat.copy_(c["synth_n"])  # in place: a new version, folded anew
+    SK.polyphase_synthesis_blocks(ts, n_mat, c["g2"])
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda_device):
