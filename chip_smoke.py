@@ -7,8 +7,8 @@ Phases:
 
   1. environment: torch, CUDA, nvcc and the card (fails without CUDA);
   2. build, all libraries at once: the entropy-scan, synthesis and
-     window-add kernels (nvcc, sm_90a) and the host MP3 and FLAC
-     front-ends (g++);
+     window-add kernels (K3's window_add.cu, K4's window_add2.cu; nvcc,
+     sm_90a) and the host MP3 and FLAC front-ends (g++);
   3. kernels against their plain twins on the card: the entropy scan (K1)
      must match exactly, the synthesis (K2) within atol 1e-4 / rtol 1e-5
      (the sums run in another order), at the WAV + MP3 path's shapes; the
@@ -17,7 +17,10 @@ Phases:
      its twin, its bound (bytes or operations at the card's peak) and,
      for K3/K4, one ``index_add_`` call, all in milliseconds per launch
      (K1 runs one launch per bucket of the group; the phase prints the
-     launches per pass and the longest lane's serial chain of codes);
+     launches per pass and the longest lane's serial chain of codes; K3
+     and K4 are also timed on the lanes before the zero tail of padding
+     lanes, and K4's device time per call is read from torch.profiler,
+     kernel by kernel, whole and without that tail);
   4. WAV + MP3 path: 16 WAV (10 s, 44.1 kHz stereo 16-bit, from the seed)
      + 16 copies of the committed 10 s 128 kbps joint-stereo MP3 + the
      22.05 kHz mono LSF MP3 + one garbage .wav + one .xyz, decoded with
@@ -116,6 +119,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without namespace, template or arguments."""
+    name = key.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def device_kernels(fn, reps: int) -> dict:
+    """{kernel name: device milliseconds per call of ``fn``} for every
+    kernel that ``reps`` calls launch, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / reps / 1e3
+    return out
+
+
 def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
     """Least milliseconds for the work at the card's peaks: the larger of
     bytes moved over the memory rate and f32 operations over the f32 rate."""
@@ -171,7 +201,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     loaders = (huffman_kernel.load_library, synth_kernel.load_library,
-               window_add.load_library, native._load, flac_native._load)
+               window_add.load_library, window_add.load_library2, native._load,
+               flac_native._load)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(fn) for fn in loaders]:
             f.result()  # a BuildError carries the compiler's output
@@ -417,11 +448,11 @@ def phase_flac_kernels(dev) -> list[dict]:
 
     w = _flac_windows(dev)
     out = []
-    for name, tag, fn, plain, replaces in (
+    for name, tag, fn, plain, replaces, source in (
             ("window_add2", "K4", PW.window_add2, PW.window_add2_plain,
-             "audio_decoder_tpu/ops/window_add.py:255"),
+             "audio_decoder_tpu/ops/window_add.py:255", "window_add2.cu"),
             ("window_add", "K3", PW.window_add, PW.window_add_plain,
-             "audio_decoder_tpu/ops/window_add.py:215")):
+             "audio_decoder_tpu/ops/window_add.py:215", "window_add.cu")):
         *arrays, n_out = w[name]
         sets = list(zip(arrays[0::2], arrays[1::2]))
         got, ref = fn(*arrays, n_out), plain(*arrays, n_out)
@@ -455,9 +486,16 @@ def phase_flac_kernels(dev) -> list[dict]:
             f"index_add_ {library_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
             f"kernel on the {[int(t.shape[0]) for t in live[::2]]} lanes "
             f"before the zero tail {live_ms:.4f} ms")
+        if tag == "K4":  # its device time, per kernel, whole and split
+            for label, args in (("", arrays), ("before the zero tail, ", live)):
+                kern = device_kernels(lambda a=args: fn(*a, n_out), 20)
+                per = ", ".join(f"{kernel_name(k)} {v:.4f}"
+                                for k, v in kern.items())
+                log(f"K4 device, {label}ms per call: {sum(kern.values()):.4f} "
+                    f"({per})")
         out.append(dict(
             name=name, route="cuda",
-            source="audio_decoder_tpu_torch/csrc/window_add.cu",
+            source=f"audio_decoder_tpu_torch/csrc/{source}",
             replaces=replaces,
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=by, library_ms=library_ms))

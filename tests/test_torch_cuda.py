@@ -9,7 +9,8 @@ suite's JAX conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 ``window_case`` also serves the CPU tests of the window-add twins
-(tests/test_torch_window_add.py), so both hold the same cases.
+(tests/test_torch_window_add.py), so both hold the same cases;
+``window2_cases`` (K4's own edges) also serves tools/rehearse_cuda.py.
 """
 
 import os
@@ -370,6 +371,114 @@ def test_window_add_kernels_at_the_flac_group_shapes(cuda_device):
         got, ref = fn(*w[key]), plain(*w[key])
         torch.cuda.synchronize()
         assert torch.equal(got, ref), key
+
+
+def window2_cases():
+    """(id, starts_a, upd_a, starts_b, upd_b, n_out): K4's edges.  Cases
+    whose id starts with "unaligned" are run on update arrays that begin
+    one element into their storage (``unaligned_view``)."""
+    rng = np.random.default_rng(21)
+    cases = []
+    sb, ub, nb = window_case(rng, 64, 8, 40)
+    # 2,700 zero padding lanes re-pointed onto the last live start: a pile-up
+    # of about 42 units, more than one group of partials
+    sa, ua, na = window_case(rng, 3000, 256, 300)
+    cases.append(("pile-up", sa, ua, sb, ub, max(na, nb)))
+    # a live lane whose start falls below the one before it, and a padding
+    # lane inside the pile-up, both with nonzero updates: re-pointed and added
+    sa2, ua2 = sa.copy(), ua.copy()
+    sa2[150] = sa2[149] - 5
+    ua2[150] = rng.integers(-99, 99, size=256)
+    ua2[2500] = rng.integers(-99, 99, size=256)
+    cases.append(("repointed-pile-up", sa2, ua2, sb, ub, max(na, nb)))
+    # 1,400 zero padding lanes of width 8 on one start, one of them nonzero
+    # (the fixed-width lanes' pile-up: narrow rows, many of them)
+    sn, un, nn = window_case(rng, 1500, 8, 100)
+    un[1200] = rng.integers(-99, 99, size=8)
+    cases.append(("narrow-pile-up", sa[:300], ua[:300], sn, un, max(na, nn)))
+    sb3, ub3, nb3 = window_case(rng, 50, 3, 40)
+    for W in (7, 13, 96):
+        sw, uw, nw = window_case(rng, 400, W, 350)
+        cases.append((f"unaligned-{W}", sw, uw, sb3, ub3, max(nw, nb3)))
+    cases.append(("empty-b", sa, ua, np.zeros(0, np.int32),
+                  np.zeros((0, 8), np.int32), na))
+    cases.append(("empty-a", np.zeros(0, np.int32), np.zeros((0, 256), np.int32),
+                  sb, ub, nb))
+    cases.append(("cut", sa, ua, sb, ub, int(sa[299]) + 100))
+    for W, L, live in ((4096, 24, 20), (8200, 16, 12)):
+        sw, uw, nw = window_case(rng, L, W, live)
+        cases.append((f"wide-{W}", sw, uw, sb, ub, max(nw, nb)))
+    # float32, overlapping nonzero windows and a pile-up of nonzero lanes
+    La = 200
+    sf = np.concatenate([np.sort(rng.integers(0, 3000, size=La)),
+                         np.full(600, 2990)]).astype(np.int32)
+    uf = rng.standard_normal((sf.size, 64)).astype(np.float32)
+    sfb = np.sort(rng.integers(0, 3000, size=50)).astype(np.int32)
+    ufb = rng.standard_normal((50, 8)).astype(np.float32)
+    cases.append(("f32-overlap", sf, uf, sfb, ufb, 3100))
+    return cases
+
+
+def unaligned_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a tensor that starts one element into its storage."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+def window2_matches(got, arrays, n_out) -> bool:
+    """Exact against window_add2_plain and the two single-set twins (int32);
+    float32 within 2e-3 of the float64 sum (rounding of sums of up to ~700
+    terms of magnitude ~1, in another order)."""
+    sa, ua, sb, ub = arrays
+    if got.dtype == torch.float32:
+        ref = PW.window_add2_plain(sa, ua.double(), sb, ub.double(), n_out)
+        return bool(torch.allclose(got.double(), ref, atol=2e-3, rtol=1e-5))
+    ref = PW.window_add2_plain(*arrays, n_out)
+    two = PW.window_add_plain(sa, ua, n_out) + PW.window_add_plain(sb, ub, n_out)
+    return torch.equal(got, ref) and torch.equal(got, two)
+
+
+@pytest.mark.parametrize("case", window2_cases(), ids=lambda c: c[0])
+def test_window_add2_kernel_edges(cuda_device, case):
+    cid, *arrays, n_out = case
+    arrays = _on(cuda_device, *arrays)
+    if cid.startswith("unaligned"):
+        arrays[1] = unaligned_view(arrays[1])
+        assert arrays[1].data_ptr() % 16 != 0
+    before = PW.launches["window_add2"]
+    got = PW.window_add2(*arrays, n_out)
+    assert PW.launches["window_add2"] == before + 1
+    again = PW.window_add2(*arrays, n_out)
+    torch.cuda.synchronize()
+    assert got.shape == (n_out,) and window2_matches(got, arrays, n_out)
+    assert torch.equal(got, again)  # float32 too: one fixed order
+
+
+def test_window_add2_raises_when_the_kernel_fails(cuda_device, monkeypatch):
+    """No fallback: a launch that returns a CUDA error raises, and so does
+    a library that cannot be built."""
+    from audio_decoder_tpu_torch.utils import build
+
+    s, u = _on(cuda_device, np.zeros(4, np.int32), np.zeros((4, 8), np.int32))
+
+    class Failing:
+        @staticmethod
+        def window_add2_launch(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(PW, "load_library2", lambda: Failing)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        PW.window_add2(s, u, s, u, 16)
+    monkeypatch.undo()
+
+    def no_nvcc():
+        raise build.BuildError("nvcc not found")
+
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    with pytest.raises(build.BuildError):
+        PW.window_add2(s, u, s, u, 16)
 
 
 def test_window_add_rejects_bad_inputs(cuda_device):

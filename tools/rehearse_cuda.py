@@ -1,0 +1,139 @@
+"""Rehearse a CUDA kernel source on the CPU, against its plain twin.
+
+Builds a ``.cu`` file of the port with g++ instead of nvcc: the source is
+rewritten (each ``kernel<<<grid, block, smem, stream>>>(args)`` launch
+becomes a call of ``shim::launch``, each ``extern __shared__`` array a
+static array) and compiled with ``tools/cuda_cpu_shim.h`` force-included,
+which runs every CUDA thread of a block as a std::thread.  The library
+keeps the source's plain C interface, so the port's own wrapper drives it
+on CPU tensors.  It shows wrong indexing, races on shared memory, barrier
+and alignment faults and wrong results at small sizes; it cannot show
+speed, or a read of a ``cp.async`` buffer before its wait (the shim copies
+at issue time).  It is a tool for the step before a kernel's first run on
+the card, not a test.
+
+Usage:
+  python tools/rehearse_cuda.py [--only ID] [SOURCE]
+
+SOURCE defaults to ``audio_decoder_tpu_torch/csrc/window_add2.cu``; a file
+of that name (a copy being edited, say) is run on the K4 cases of ``tests/test_torch_cuda.py`` (``window2_cases``),
+each held against ``window_add2_plain`` as the card's tests hold it
+(``window2_matches``: int32 exactly, float32 within 2e-3 of the float64
+sum) and called twice with identical results.  Another source is only
+built.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes as C
+import os
+import re
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from audio_decoder_tpu_torch.ops import window_add as PW  # noqa: E402
+
+SHIM = os.path.join(ROOT, "tools", "cuda_cpu_shim.h")
+OUT = os.path.join(ROOT, "build", "rehearse")
+K4 = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "window_add2.cu")
+
+_LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
+                     re.S)
+_DYN_SMEM = re.compile(r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?"
+                       r"([\w ]+?)\s+(\w+)\[\];")
+
+
+def _split_top(s: str) -> list[str]:
+    """Split at the commas outside parentheses, brackets and angles."""
+    parts, depth, cur = [], 0, ""
+    for ch in s:
+        if ch in "([<":
+            depth += 1
+        elif ch in ")]>":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    parts.append(cur.strip())
+    return parts
+
+
+def rewrite(src: str) -> str:
+    def launch(m: re.Match) -> str:
+        cfg = _split_top(m.group(2))
+        smem = cfg[2] if len(cfg) > 2 else "0"
+        return (f"shim::launch(dim3({cfg[0]}), dim3({cfg[1]}), "
+                f"(size_t)({smem}), [=]() {{ {m.group(1)}({m.group(3)}); }});")
+
+    src = re.sub(r"#include\s*<cuda_runtime\.h>", "", src)
+    src = _DYN_SMEM.sub(r"alignas(16) static \1 \2[shim::kDynSmem];", src)
+    return _LAUNCH.sub(launch, src)
+
+
+def build_shim(path: str) -> str:
+    """g++ build of the rewritten source; returns the library's path."""
+    os.makedirs(OUT, exist_ok=True)
+    name = os.path.splitext(os.path.basename(path))[0]
+    cc = os.path.join(OUT, f"{name}.cc")
+    with open(path) as f, open(cc, "w") as g:
+        g.write(rewrite(f.read()))
+    so = os.path.join(OUT, f"lib{name}_shim.so")
+    cmd = ["g++", "-std=c++20", "-O1", "-g", "-pthread", "-fPIC", "-shared",
+           "-include", SHIM, "-o", so, cc]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"g++ failed:\n{proc.stderr}")
+    return so
+
+
+def rehearse_k4(so: str, only: str | None) -> None:
+    from tests.test_torch_cuda import unaligned_view, window2_cases, window2_matches
+
+    lib = C.CDLL(so)
+    PW._declare2(lib)
+    for cid, sa, ua, sb, ub, n_out in window2_cases():
+        if only and cid != only:
+            continue
+        t0 = time.perf_counter()
+        arrays = [torch.as_tensor(x) for x in (sa, ua, sb, ub)]
+        if cid.startswith("unaligned"):
+            arrays[1] = unaligned_view(arrays[1])
+        sets = [tuple(arrays[0:2]), tuple(arrays[2:4])]
+        got = PW._window_add2_cuda(sets, n_out, lib=lib, stream=0)
+        again = PW._window_add2_cuda(sets, n_out, lib=lib, stream=0)
+        ok = window2_matches(got, arrays, n_out) and torch.equal(got, again)
+        ref = PW.window_add2_plain(*arrays, n_out)
+        plan = PW.plan_sizes(sa.shape[0], ua.shape[1], sb.shape[0],
+                             ub.shape[1], n_out)
+        print(f"{cid}: {'ok' if ok else 'DIFFERS'} (tiles {plan.nt}, heavy "
+              f"bound {plan.heavy}; {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if not ok:
+            bad = torch.nonzero(got != ref).flatten()
+            raise SystemExit(f"{cid}: {bad.numel()} elements differ, first "
+                             f"{bad[:8].tolist()}: {got[bad[:8]].tolist()} vs "
+                             f"{ref[bad[:8]].tolist()}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("source", nargs="?", default=K4)
+    ap.add_argument("--only", help="run only the case with this id")
+    args = ap.parse_args()
+    so = build_shim(os.path.abspath(args.source))
+    print(f"built {so}", flush=True)
+    if os.path.basename(args.source) == os.path.basename(K4):
+        rehearse_k4(so, args.only)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,38 +1,53 @@
-"""Time versions of the PyTorch port's MP3 CUDA kernels against each other.
+"""Time versions of the PyTorch port's CUDA kernels against each other.
 
 Runs on one NVIDIA GPU, on the inputs ``chip_smoke.py`` gives the kernels:
 the three entropy-scan (K1) launches of the 16-file stereo MP3 group's
-buckets and the synthesis (K2) of the same group's subband samples.  Each
-version is a ``.cu`` source with the plain C interface of
-``audio_decoder_tpu_torch/csrc/mp3_entropy.cu`` (K1) or ``mp3_synth.cu``
-(K2), built here with the port's nvcc flags.  A version's tables are named
-after a colon:
+buckets, the synthesis (K2) of the same group's subband samples, and the
+FLAC value assembly (K4) of the 16-file FLAC group.  Each version is a
+``.cu`` source with the plain C interface of
+``audio_decoder_tpu_torch/csrc/mp3_entropy.cu`` (K1), ``mp3_synth.cu``
+(K2) or ``window_add2.cu`` (K4), built here with the port's nvcc flags.
+A version's tables or interface are named after a colon:
 
 * K1 ``two_level`` (the default): the interface of the source in the tree
   (``huffman_device``'s two-level table, its first-level bases and the
   count1 table); ``flat``: the first design's interface (the flat prefix
   LUT and its bases, the count1 threshold constants);
 * K2 ``folded`` (the default): ``synth_kernel.fold_synth_n(SYNTH_N)``;
-  ``full``: SYNTH_N itself (the first design's).
+  ``full``: SYNTH_N itself (the first design's);
+* K4 ``ws`` (the default): ``window_add2.cu``'s three launches over one
+  workspace; ``plan``: the first design's interface (``window_add.cu``'s
+  plan launch, ``torch.cumsum``, then its main kernel).
 
 Every version is first held against the plain twin (K1 exactly, K2 within
 atol 1e-4 / rtol 1e-5), then timed with CUDA events in turns (the versions
 in order, then in reverse, ``--rounds`` times), each turn the mean of
 ``--reps`` back-to-back calls, which cannot go below the calls' host time;
 then its kernel's device time per launch is read from torch.profiler over
-``--reps`` calls.  Prints one line per version with its turns and device
-time, in milliseconds per launch, beside the card's name and power limit,
-and writes them to ``kernel_ab.json`` in chip_smoke.py's output
-directory (``OUT_DIR``).
+``--reps`` calls.  K4 versions are held exactly against
+``window_add2_plain`` on the group's inputs and on parts of them (the
+lanes before the zero tails of padding lanes, each set's zero tail alone,
+no lanes); each is timed by CUDA events on the whole group and on the
+lanes before the zero tails, and every kernel of a call (K4 is one
+wrapper call of up to four kernels) is listed with its device time per
+call on each part.  With ``--k4``, K3 (``window_add``, which stays on the
+first design) is timed in the same call, and so is a yardstick of the
+card's memory: a copy of set a's updates.  Prints one line per
+version with its turns and device time, in milliseconds per launch,
+beside the card's name and power limit, and writes them to
+``kernel_ab.json`` in chip_smoke.py's output directory (``OUT_DIR``).
 
 Usage (the first design's sources are in git history):
   git show cf3a5a4:audio_decoder_tpu_torch/csrc/mp3_entropy.cu > build/ab/k1_pr1.cu
   git show cf3a5a4:audio_decoder_tpu_torch/csrc/mp3_synth.cu > build/ab/k2_pr1.cu
+  git show 727c5f2:audio_decoder_tpu_torch/csrc/window_add.cu > build/ab/k4_pr2.cu
   python tools/torch_kernel_ab.py \\
       --k1 pr1=build/ab/k1_pr1.cu:flat \\
       --k1 new=audio_decoder_tpu_torch/csrc/mp3_entropy.cu \\
       --k2 pr1=build/ab/k2_pr1.cu:full \\
-      --k2 new=audio_decoder_tpu_torch/csrc/mp3_synth.cu
+      --k2 new=audio_decoder_tpu_torch/csrc/mp3_synth.cu \\
+      --k4 pr2=build/ab/k4_pr2.cu:plan \\
+      --k4 new=audio_decoder_tpu_torch/csrc/window_add2.cu
 """
 
 from __future__ import annotations
@@ -53,9 +68,11 @@ from audio_decoder_tpu_torch.codecs.mpeg import dsp  # noqa: E402
 from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD  # noqa: E402
 from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK  # noqa: E402
 from audio_decoder_tpu_torch.ops import synth_kernel as SK  # noqa: E402
+from audio_decoder_tpu_torch.ops import window_add as PW  # noqa: E402
 from audio_decoder_tpu_torch.utils import build  # noqa: E402
 
-TABLES = {"k1": ("two_level", "flat"), "k2": ("folded", "full")}
+TABLES = {"k1": ("two_level", "flat"), "k2": ("folded", "full"),
+          "k4": ("ws", "plan")}
 
 
 def parse_version(kernel: str, spec: str) -> tuple[str, str, str]:
@@ -82,9 +99,18 @@ def load(kernel: str, name: str, path: str, tables: str) -> C.CDLL:
     so = build.build_shared(f"ab_{kernel}_{name}", build.nvcc_path(),
                             build.NVCC_FLAGS, [path])
     lib = C.CDLL(so)
-    declare = {"two_level": HK._declare, "flat": _declare_flat}
+    declare = {"two_level": HK._declare, "flat": _declare_flat,
+               "ws": PW._declare2, "plan": PW._declare}
     declare.get(tables, SK._declare)(lib)
     return lib
+
+
+def k4_call(lib: C.CDLL, iface: str, arrays, n_out: int):
+    """One K4 call through ``lib``, launched as the wrapper launches it."""
+    sets = [tuple(arrays[0:2]), tuple(arrays[2:4])]
+    if iface == "plan":
+        return PW._window_add_cuda("window_add2", sets, n_out, lib=lib)
+    return PW._window_add2_cuda(sets, n_out, lib=lib)
 
 
 def k1_pass(lib: C.CDLL, tables: str, main, parts):
@@ -129,6 +155,100 @@ def k2_call(lib: C.CDLL, mat, ts, g2):
     return out
 
 
+def live_lanes(arrays):
+    """Each lane set cut before its tail of all-zero padding lanes."""
+    live = []
+    for st, u in zip(arrays[0::2], arrays[1::2]):
+        nz = torch.nonzero(u.reshape(u.shape[0], -1).ne(0).any(1))
+        n = int(nz.max()) + 1 if nz.numel() else 0
+        live += [st[:n], u[:n]]
+    return live
+
+
+def probes(arrays, n_out) -> dict:
+    """K4's inputs and parts of them: the whole group, the lanes before the
+    zero tails, each set's zero tail alone (re-pointed onto its last live
+    start) and no lanes at all (the output's zeros)."""
+    sa, ua, sb, ub = arrays
+    live = live_lanes(arrays)
+    out = {"full": arrays, "live": live}
+    for tag, (s, u), n in (("a", (sa, ua), live[0].shape[0]),
+                           ("b", (sb, ub), live[2].shape[0])):
+        at = int(s[:n].max()) if n else 0
+        tail = [torch.full((s.shape[0] - n,), at, dtype=torch.int32,
+                           device=s.device), u[n:]]
+        if tag == "a":
+            out["zero tail of a"] = tail + [sb[:0], ub[:0]]
+        else:
+            out["zero tail of b"] = [sa[:0], ua[:0]] + tail
+    out["no lanes"] = [sa[:0], ua[:0], sb[:0], ub[:0]]
+    return out
+
+
+def run_k4(specs: list[str], rounds: int, reps: int, card: str) -> dict:
+    """K4 versions on the 16-file FLAC group's inputs, then K3 there."""
+    w = CS._flac_windows(torch.device("cuda"))
+    *arrays, n_out = w["window_add2"]
+    parts = probes(arrays, n_out)
+    ref = PW.window_add2_plain(*arrays, n_out)
+    result = {"shapes": [list(t.shape) for t in arrays], "n_out": n_out,
+              "probes": {k: [int(t.shape[0]) for t in v[0::2]]
+                         for k, v in parts.items()}}
+    fns = {}
+    for spec in specs:
+        name, path, iface = parse_version("k4", spec)
+        lib = load("k4", name, path, iface)
+        for k, a in parts.items():
+            got = k4_call(lib, iface, a, n_out)
+            if not torch.equal(got, PW.window_add2_plain(*a, n_out)):
+                raise SystemExit(f"k4 {name} differs from window_add2_plain "
+                                 f"on {k}")
+        torch.cuda.synchronize()
+        assert torch.equal(k4_call(lib, iface, arrays, n_out), ref)
+        occ = (lib.window_add2_blocks_per_sm() if iface == "ws" else None)
+        print(f"k4 {name}: exact ({result['shapes']}, n_out {n_out}; and on "
+              f"{result['probes']}); main kernel blocks per SM {occ}",
+              flush=True)
+        fns[name] = {k: (lambda lib=lib, iface=iface, a=a:
+                         k4_call(lib, iface, a, n_out))
+                     for k, a in parts.items()}
+    turns = in_turns({k: v["full"] for k, v in fns.items()}, rounds, reps)
+    live_turns = in_turns({k: v["live"] for k, v in fns.items()}, rounds, reps)
+    for name in fns:
+        t, lt = turns[name], live_turns[name]
+        result[name] = {"turns_ms": t, "live_turns_ms": lt, "device": {}}
+        print(f"k4 {name}: ms per call {['%.4f' % x for x in t]} mean "
+              f"{sum(t) / len(t):.4f}; on the lanes before the zero tails "
+              f"{['%.4f' % x for x in lt]} mean {sum(lt) / len(lt):.4f}  "
+              f"[{card}]", flush=True)
+        for k, fn in fns[name].items():
+            kern = CS.device_kernels(fn, reps)
+            result[name]["device"][k] = kern
+            per = ", ".join(f"{CS.kernel_name(n)} {v:.4f}" for n, v in kern.items())
+            print(f"k4 {name}: device on {k}: {sum(kern.values()):.4f} ms per "
+                  f"call ({per})", flush=True)
+    k3 = w["window_add"]
+    k3_turns = in_turns({"k3": lambda: PW.window_add(*k3)}, rounds, reps)["k3"]
+    k3_kern = CS.device_kernels(lambda: PW.window_add(*k3), reps)
+    result["k3"] = {"turns_ms": k3_turns, "device_ms": sum(k3_kern.values()),
+                    "kernels": k3_kern}
+    print(f"k3 (window_add.cu, unchanged): ms per call "
+          f"{['%.4f' % x for x in k3_turns]} mean "
+          f"{sum(k3_turns) / len(k3_turns):.4f}; device "
+          f"{sum(k3_kern.values()):.4f} ms per call  [{card}]", flush=True)
+    # what the card's memory gives a plain stream of the same size: one
+    # copy of set a's updates (read and write)
+    ua = arrays[1]
+    dst = torch.empty_like(ua)
+    copy_ms = CS.cuda_ms(lambda: dst.copy_(ua), reps)
+    mb = 2 * ua.numel() * ua.element_size() / 1e6
+    result["copy"] = {"ms": copy_ms, "mb_moved": mb}
+    print(f"yardstick: copy of set a's updates, {mb:.1f} MB moved, "
+          f"{copy_ms:.4f} ms ({mb / copy_ms / 1e3:.3f} TB/s)  [{card}]",
+          flush=True)
+    return result
+
+
 def device_ms(fn, reps: int, kernel: str) -> float:
     """Device milliseconds per launch of the kernels named ``kernel``
     among ``reps`` calls of ``fn``, from torch.profiler."""
@@ -166,6 +286,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1", action="append", default=[], metavar="NAME=PATH[:TABLES]")
     ap.add_argument("--k2", action="append", default=[], metavar="NAME=PATH[:TABLES]")
+    ap.add_argument("--k4", action="append", default=[], metavar="NAME=PATH[:IFACE]")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
@@ -173,9 +294,15 @@ def main() -> None:
         raise SystemExit("torch_kernel_ab: needs a CUDA GPU")
     card = CS.card_line()
     dev = torch.device("cuda")
+    result = {"card": card, "k1": {}, "k2": {}}
+    if args.k4:
+        result["k4"] = run_k4(args.k4, args.rounds, args.reps, card)
+    if not (args.k1 or args.k2):
+        write(result)
+        return
     group, perm, buckets, ch, joint = CS._main_path_group(dev)
     main_u8, parts = CS._scan_inputs(group, perm, buckets)
-    result = {"card": card, "k1_launches_per_pass": len(parts), "k1": {}, "k2": {}}
+    result["k1_launches_per_pass"] = len(parts)
 
     k1 = {}
     for spec in args.k1:
@@ -228,6 +355,10 @@ def main() -> None:
               f"{sum(turns) / len(turns):.4f}; device {dev_ms:.4f} ms per "
               f"launch  [{card}]", flush=True)
 
+    write(result)
+
+
+def write(result: dict) -> None:
     os.makedirs(CS.OUT_DIR, exist_ok=True)
     with open(os.path.join(CS.OUT_DIR, "kernel_ab.json"), "w") as f:
         json.dump(result, f, indent=1)
