@@ -1,394 +1,550 @@
-// Contiguous-window scatter-add: out[starts[l] + i] += upd[l, i] for one or
-// two lane sets, truncated to n_out, every output element written once.
+// Contiguous-window scatter-add over one lane set:
+//   out[starts[l] + i] += upd[l, i]
+// truncated to n_out, every output element written once, int32 or float32.
 //
-// Replaces the TPU kernels audio_decoder_tpu/ops/window_add.py window_add
-// (body _kernel, K3) and window_add2 (body _kernel2, K4).  The plain torch
-// twins are ops/window_add.window_add_plain and window_add2_plain.  FLAC
-// assembles its values (K4: int32 rice lanes [65536, 256] + fixed-width
-// lanes [4096, 8] at the 16-file main path) and its PCM (K3: f32 frames
-// [2048, 8192]) with them.
+// Replaces the TPU kernel audio_decoder_tpu/ops/window_add.py window_add
+// (body _kernel, K3).  The plain torch twin is
+// ops/window_add.window_add_plain.  FLAC assembles its PCM with it: f32
+// frame rows [2048, 8192] into 16,785,408 outputs at the 16-file group.
 //
 // Contract (the caller's, as for the TPU kernel): starts are non-decreasing
 // over the live lanes; padding lanes carry zero updates and may sit at the
-// tail with start 0.  Every start is re-pointed through a running maximum
-// first (window_add_runmax), so the starts the other kernels see are sorted
-// and the lanes that touch any output range form one contiguous run, found
-// by binary search.
+// tail with start 0.  Every start is re-pointed through a running maximum,
+// so the starts the later kernels see are sorted and the lanes that touch
+// an output range form one contiguous run, found by binary search.  A
+// re-pointed lane is added like any other, whatever its updates.
 //
 // What bounds it: bytes.  Each update is read once and each output written
-// once (K4 at the main path: ~67 MB in, ~67 MB out; ~40 us at 3.35 TB/s).
-// Design:
-//   * window_add_runmax: the running maximum of each set's starts, one block
-//     per chunk of starts.
-//   * window_add_plan: one thread per output tile of kTile elements finds
-//     the tile's lane run of each set by binary search on the sorted starts
-//     and splits it into units of about kUnitWork lane-elements.
-//   * window_add_main: one block per unit.  The units of heavy tiles come
-//     first in the grid, so they start early instead of trailing, mapped
-//     back to their tile through an exclusive scan of the tiles' unit
-//     counts; block heavy_blocks + t takes tile t if it has one unit.
-//     Thread k of
-//     a block owns the tile elements e with e % kThreads == k and keeps
-//     their sums in shared memory; it walks the unit's lanes in lane order
-//     (set a, then set b; their starts staged in shared memory) and adds the
-//     part of each lane that falls on its elements, so neighbouring threads
-//     read neighbouring updates and no two threads touch one element.  A
-//     lane at most kThreads wide gives each thread at most one element, so
-//     such lanes go kBatch at a time, their loads in flight together.
-//   * A tile with more work than one unit (the FLAC packers' padding lanes
-//     all land on the last live start: ~10,400 lanes on one 256-wide window
-//     in K4 and ~320 frames on one 8192-wide window in K3 at the main path)
-//     is spread over several blocks, so it does not become a serial tail.
-//     Each writes the range of its partial tile that its lanes cover to
-//     scratch; the last one to finish (an atomic counter per tile) adds the
-//     partials in unit order and writes the tile once.  No zero-fill pass: a
-//     tile with no lanes writes its zeros directly.
+// once (67 MB in, 67 MB out at the 16-file group: 40 us at 3.35 TB/s).  At
+// that shape most of the output is one row copied: every live frame starts
+// at a multiple of 8192 and covers two tiles alone, 642 tiles get no lane,
+// and the 320 padding rows pile onto the last live start (two tiles of 321
+// rows, 10.5 MB of zeros to add).  So the design keeps the sums in
+// registers, moves 16 bytes per access and keeps many blocks' loads in
+// flight:
+//   * The plan, for at most kSmemStarts starts (FLAC's frame rows): a
+//     4-byte memset zeroes the heavy-unit counter, then every block of
+//     window_add_plan takes the running maximum of the starts into shared
+//     memory itself and block 0 writes them to the workspace.  For more
+//     starts, window_add_runmax takes the running maximum of each chunk of
+//     run_chunk starts and each chunk's maximum, and the plan blocks apply
+//     the prefix maximum of those (the carries) to the starts in place.
+//     Two plan threads per output tile of kTile elements find the tile's
+//     lane run by binary search (one search each, in shared memory when
+//     the starts are there).  The first of the two writes the tile's record
+//     (its lanes, its first lane's start, its unit slot or -1) and, for a
+//     tile of more than one unit of about kUnitWork lane-elements (heavy),
+//     takes a contiguous range of unit slots with one atomicAdd.
+//   * window_add_main: blocks [0, heavy_blocks) walk the heavy units (unit
+//     i, i + heavy_blocks, ...), so the pile-ups start first; block
+//     heavy_blocks + t takes tile t if it is light.  Thread k of kThreads
+//     owns the kVecs runs of 4 consecutive elements at 4 * (k + v *
+//     kThreads) and keeps their sums in registers: it adds the tile's rows
+//     in lane order with 16-byte loads, all of a row's loads issued before
+//     their adds, and writes each run with one 16-byte store.  No shared
+//     memory, no barrier outside the heavy tiles' hand-over.  A light tile
+//     of one lane needs one dependent load (its record) before its row's
+//     loads; at 40 registers, three blocks of 512 threads fit on an SM, and
+//     the one-row tiles run at the card's copy rate.
+//   * A row whose start is not a multiple of 4 is read with the same
+//     aligned 16-byte loads, two per run, and shifted into place in
+//     registers (the shift is the same for every run of the row).  A row
+//     that is not 16-byte aligned in memory (W % 4 != 0, or an update array
+//     that starts off 16 bytes) is read 4 bytes at a time.
+//   * A heavy tile's units each write their partial tile to scratch.  The
+//     last unit of each group of kGroup units to finish (an atomic counter
+//     per group) adds the group's partials in unit order; the last group
+//     of the tile adds the groups' sums in group order and writes the tile.
+//     The order is fixed, so float32 gives the same bits on every run.
+// No zero-fill pass: a tile with no lanes writes its zeros directly.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 4096;             // output elements per tile
-constexpr int kThreads = 256;
-constexpr long long kUnitWork = 65536;  // lane-elements one block adds
-constexpr int kBatch = 8;               // narrow rows whose loads go together
-constexpr int kStage = 1024;            // lane starts staged at a time
-constexpr int kScanThreads = 1024;
-constexpr int kScanPer = 16;            // starts per scan thread
-constexpr int kScanChunk = kScanThreads * kScanPer;
+constexpr int kTile = 4096;                     // output elements per tile
+constexpr int kThreads = 512;                   // the main kernel's blocks
+constexpr int kMinBlocks = 3;                   // its blocks per SM, at least
+constexpr int kPlanThreads = 256;               // the running max's and plan's
+constexpr int kVecs = kTile / 4 / kThreads;     // runs of 4 per thread
+constexpr int kElems = 4 * kVecs;               // a thread's elements
+constexpr long long kUnitWork = 32768;          // lane-elements one block adds
+constexpr int kRowWork = kTile / 4;             // the least a row costs
+constexpr int kGroup = 16;                      // partials per combine step
+constexpr int kPartsInFlight = 2;               // partials loaded at a time
+constexpr int kRunChunk = 2048;                 // starts per running-max step
+constexpr int kMaxChunks = 4096;                // chunk maxima the plan scans
+constexpr int kSmemStarts = 4096;               // starts a plan block scans
+constexpr int kHeavyBlocks = 264;               // blocks that walk heavy units
 
-__device__ __forceinline__ int lower_bound(const int* __restrict__ s, int n,
-                                           long long v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((long long)s[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+static_assert(kTile % (4 * kThreads) == 0, "a tile is whole runs per thread");
+
+// 16 bytes as four T, through int4 (T is int32_t or float).
+template <typename T>
+__device__ __forceinline__ T from_bits(int x) {
+  if constexpr (std::is_same_v<T, float>) return __int_as_float(x);
+  else return x;
+}
+template <typename T>
+__device__ __forceinline__ int to_bits(T x) {
+  if constexpr (std::is_same_v<T, float>) return __float_as_int(x);
+  else return x;
+}
+template <typename T>
+__device__ __forceinline__ void unpack(int4 v, T* r) {
+  r[0] = from_bits<T>(v.x);
+  r[1] = from_bits<T>(v.y);
+  r[2] = from_bits<T>(v.z);
+  r[3] = from_bits<T>(v.w);
+}
+template <typename T>
+__device__ __forceinline__ int4 pack(const T* r) {
+  return make_int4(to_bits(r[0]), to_bits(r[1]), to_bits(r[2]), to_bits(r[3]));
 }
 
-// Units of a tile whose lane runs are r = (lo_a, hi_a, lo_b, hi_b): its
-// work is counted as lanes times min(W, kTile) elements.
-__device__ __forceinline__ int tile_units(int4 r, int Wa, int Wb) {
-  const int na = r.y - r.x, nb = r.w - r.z;
-  const long long work = (long long)na * min(Wa, kTile) +
-                         (long long)nb * min(Wb, kTile);
+// Units of a tile of n lanes of width W: its work is counted as lanes times
+// min(W, kTile) elements, and at least kRowWork per lane, since every
+// thread steps through every row of its tile.
+__device__ __forceinline__ int tile_units(int n, int W) {
+  const long long work = (long long)n * max(min(W, kTile), kRowWork);
   long long u = (work + kUnitWork - 1) / kUnitWork;
-  u = min(u, (long long)max(na + nb, 1));
+  u = min(u, (long long)max(n, 1));
   return (int)max(u, 1LL);
 }
 
-// The lanes of unit c of a tile: a[a0, a1) then b[b0, b1).
-struct Unit {
-  int a0, a1, b0, b1;
+// A tile's record from the plan: its lanes [lo, hi), the start of lane lo
+// (0 without lanes) and its first unit slot (-1 for a light tile).
+struct Rec {
+  int lo, hi, start, off;
 };
 
-__device__ __forceinline__ Unit unit_lanes(int4 r, int units, int c) {
-  const int na = r.y - r.x, n = na + (r.w - r.z);
+template <typename T>
+struct Args {
+  const int* starts;  // sorted (re-pointed) starts
+  const T* upd;
+  int W;
+  bool vec;           // rows are 16-byte aligned: W % 4 == 0, upd aligned
+  long long n_out;
+  T* out;
+  const int4* recs;
+  unsigned* tcnt;
+  const int* heavy_total;
+  const int* unit_tile;
+  unsigned* gcnt;
+  T* scratch;
+  int heavy, heavy_blocks;
+};
+
+// acc += row[q .. q + 4) for each run, q = qb + 4 * (tid + v * kThreads)
+// (qb: the row element at tile element 0, qb & 3 == SH), through the
+// aligned 16-byte chunks that hold them; elements outside [0, W) add 0.
+template <int SH, typename T>
+__device__ __forceinline__ void add_row_vec(T (&acc)[kElems], const T* row,
+                                            long long qb, int W) {
+  int4 a[kVecs], b[kVecs];
+  const int4 zero = make_int4(0, 0, 0, 0);
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const long long q0 = qb - SH + 4 * (threadIdx.x + v * kThreads);
+    a[v] = q0 >= 0 && q0 < W ? __ldg(reinterpret_cast<const int4*>(row + q0))
+                             : zero;
+    if (SH) {
+      b[v] = q0 + 4 >= 0 && q0 + 4 < W
+                 ? __ldg(reinterpret_cast<const int4*>(row + q0 + 4))
+                 : zero;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    T x[8];
+    unpack(a[v], x);
+    if (SH) unpack(b[v], x + 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[4 * v + i] += x[SH + i];
+  }
+}
+
+// The same, 4 bytes at a time (a row that is not 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void add_row_scalar(T (&acc)[kElems], const T* row,
+                                               long long qb, int W) {
+  T x[kElems];
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long q = qb + 4 * (threadIdx.x + v * kThreads) + i;
+      x[4 * v + i] = q >= 0 && q < W ? __ldg(row + q) : T(0);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kElems; ++k) acc[k] += x[k];
+}
+
+// Adds lanes [j0, j1) in order into this thread's elements of the tile at
+// t0 (start0: the start of lane j0).
+template <typename T>
+__device__ __forceinline__ void add_rows(T (&acc)[kElems], const Args<T>& p,
+                                         int j0, int j1, int start0,
+                                         long long t0) {
+  for (int j = j0; j < j1; ++j) {
+    const long long qb = t0 - (j == j0 ? start0 : p.starts[j]);
+    if (qb >= p.W || qb + kTile <= 0) continue;
+    const T* row = p.upd + (long long)j * p.W;
+    if (!p.vec) {
+      add_row_scalar(acc, row, qb, p.W);
+      continue;
+    }
+    switch ((int)(qb & 3)) {
+      case 0: add_row_vec<0>(acc, row, qb, p.W); break;
+      case 1: add_row_vec<1>(acc, row, qb, p.W); break;
+      case 2: add_row_vec<2>(acc, row, qb, p.W); break;
+      default: add_row_vec<3>(acc, row, qb, p.W); break;
+    }
+  }
+}
+
+// This thread's runs of the tile at t0 into out, cut at n_out.
+template <typename T>
+__device__ __forceinline__ void store_tile(const Args<T>& p, long long t0,
+                                           const T (&acc)[kElems]) {
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const long long g = t0 + 4 * (threadIdx.x + v * kThreads);
+    if (g + 4 <= p.n_out) {
+      __stwb(reinterpret_cast<int4*>(p.out + g), pack(acc + 4 * v));
+    } else {
+      for (int i = 0; i < 4 && g + i < p.n_out; ++i) p.out[g + i] = acc[4 * v + i];
+    }
+  }
+}
+
+// acc = the sum, in order, of the `count` partial tiles at slots slot0 +
+// k * stride, kPartsInFlight partials' loads in flight at a time.
+template <typename T>
+__device__ __forceinline__ void sum_partials(T (&acc)[kElems],
+                                             const T* scratch, int slot0,
+                                             int stride, int count) {
+#pragma unroll
+  for (int k = 0; k < kElems; ++k) acc[k] = T(0);
+  for (int k0 = 0; k0 < count; k0 += kPartsInFlight) {
+    int4 x[kPartsInFlight][kVecs];
+#pragma unroll
+    for (int k = 0; k < kPartsInFlight; ++k) {
+      const T* part = scratch + (long long)(slot0 + (k0 + k) * stride) * kTile;
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) {
+        x[k][v] = k0 + k < count
+                      ? __ldcg(reinterpret_cast<const int4*>(
+                            part + 4 * (threadIdx.x + v * kThreads)))
+                      : make_int4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPartsInFlight; ++k) {
+      if (k0 + k >= count) break;
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) {
+        T y[4];
+        unpack(x[k][v], y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[4 * v + i] += y[i];
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_partial(T* part, const T (&acc)[kElems]) {
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    __stcg(reinterpret_cast<int4*>(part + 4 * (threadIdx.x + v * kThreads)),
+           pack(acc + 4 * v));
+  }
+}
+
+// Unit c of tile t (record r).
+template <typename T>
+__device__ __forceinline__ void run_unit(const Args<T>& p, int t, const Rec& r,
+                                         int c) {
+  __shared__ int s_last;
+  const long long t0 = (long long)t * kTile;
+  const int n = r.hi - r.lo;
+  const int units = r.off < 0 ? 1 : tile_units(n, p.W);
   const int per = (n + units - 1) / units;
-  const int g0 = min(c * per, n), g1 = min(g0 + per, n);
-  return {r.x + min(g0, na), r.x + min(g1, na), r.z + max(g0 - na, 0),
-          r.z + max(g1 - na, 0)};
+  const int j0 = r.lo + min(c * per, n), j1 = r.lo + min(c * per + per, n);
+  T acc[kElems];
+#pragma unroll
+  for (int k = 0; k < kElems; ++k) acc[k] = T(0);
+  // a light tile's first start comes with its record: one load less
+  const int start0 = j0 == r.lo ? r.start : j0 < j1 ? p.starts[j0] : 0;
+  add_rows(acc, p, j0, j1, start0, t0);
+  if (units == 1) {
+    store_tile(p, t0, acc);
+    return;
+  }
+
+  // heavy tile: this unit's partial, then the fixed-order combine
+  store_partial(p.scratch + (long long)(r.off + c) * kTile, acc);
+  __threadfence();
+  __syncthreads();
+  const int g = c / kGroup, groups = (units + kGroup - 1) / kGroup;
+  const int in_group = min(kGroup, units - g * kGroup);
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(&p.gcnt[r.off + g * kGroup], 1u) ==
+             (unsigned)(in_group - 1);
+  }
+  __syncthreads();
+  const bool last_of_group = s_last;
+  __syncthreads();  // s_last is read
+  if (!last_of_group) return;
+  __threadfence();
+
+  // level 1: the group's partials in unit order
+  sum_partials(acc, p.scratch, r.off + g * kGroup, 1, in_group);
+  if (groups == 1) {
+    store_tile(p, t0, acc);
+    return;
+  }
+  store_partial(p.scratch + (long long)(r.off + g * kGroup) * kTile, acc);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(&p.tcnt[t], 1u) == (unsigned)(groups - 1);
+  }
+  __syncthreads();
+  const bool last_of_tile = s_last;
+  __syncthreads();
+  if (!last_of_tile) return;
+  __threadfence();
+
+  // level 2: the groups' sums in group order
+  sum_partials(acc, p.scratch, r.off, kGroup, groups);
+  store_tile(p, t0, acc);
 }
 
-// Load through L2 (kCg: values another block wrote during this launch).
-template <bool kCg, typename T>
-__device__ __forceinline__ T load(const T* p) {
-  if constexpr (kCg) return __ldcg(p); else return *p;
-}
+__device__ __forceinline__ Rec rec_of(int4 v) { return {v.x, v.y, v.z, v.w}; }
 
-// Adds rows [0, n) in order into this thread's elements of the tile that
-// starts at t0 (acc: the tile, in shared memory).  Row j covers elements
-// [start(j), start(j) + width(j)); its value at element x is
-// base(j)[x - start(j)].  `narrow`: every row is at most kThreads wide.
-template <bool kCg, typename T, typename Rows>
-__device__ void add_rows(T* acc, long long t0, int n, const Rows& rows,
-                         bool narrow) {
-  const int tid = threadIdx.x;
-  const long long t1 = t0 + kTile;
-  if (narrow) {
-    // at most one element of each row is this thread's, so a batch of
-    // rows issues its loads together (rows are the same for every thread)
-    for (int j = 0; j < n; j += kBatch) {
-      int el[kBatch];
-      T v[kBatch];
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        el[i] = -1;
-        v[i] = T(0);
-        if (j + i < n) {
-          const long long s = rows.start(j + i);
-          const long long lo = max(s, t0), hi = min(s + rows.width(j + i), t1);
-          const int off = (int)(lo - t0);
-          const int e = off + ((tid - off) & (kThreads - 1));
-          if (lo < hi && t0 + e < hi) {
-            el[i] = e;
-            v[i] = load<kCg>(rows.base(j + i) + (t0 + e - s));
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        if (el[i] >= 0) acc[el[i]] += v[i];
-      }
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) window_add_main(
+    const Args<T> p) {
+  const int b = blockIdx.x;
+  if (b < p.heavy_blocks) {
+    const int total = min(*p.heavy_total, p.heavy);
+    for (int i = b; i < total; i += p.heavy_blocks) {
+      const int t = p.unit_tile[i];
+      const Rec r = rec_of(p.recs[t]);
+      run_unit(p, t, r, i - r.off);
     }
     return;
   }
-  for (int j = 0; j < n; ++j) {
-    const long long s = rows.start(j);
-    const long long lo = max(s, t0), hi = min(s + rows.width(j), t1);
-    if (lo >= hi) continue;
-    const int off = (int)(lo - t0), end = (int)(hi - t0);
-    const T* src = rows.base(j) + (t0 - s);  // src[e]: the value at t0 + e
-#pragma unroll 8
-    for (int e = off + ((tid - off) & (kThreads - 1)); e < end; e += kThreads) {
-      acc[e] += load<kCg>(src + e);
+  const int t = b - p.heavy_blocks;
+  const Rec r = rec_of(p.recs[t]);
+  if (r.off >= 0) return;  // heavy: its units ran above
+  run_unit(p, t, r, 0);
+}
+
+// In place: v[k] = max(v[0..k)) (INT_MIN for k = 0), n <= kMaxChunks;
+// warp 0 scans, each lane a contiguous segment.
+__device__ void exclusive_max(int* v, int n) {
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int per = (n + 31) / 32, i0 = min(lane * per, n), i1 = min(i0 + per, n);
+    int m = INT_MIN;
+    for (int i = i0; i < i1; ++i) m = max(m, v[i]);
+    int x = m;  // inclusive scan of the segment maxima
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x = max(x, y);
+    }
+    int run = __shfl_up_sync(0xffffffffu, x, 1);
+    if (lane == 0) run = INT_MIN;
+    for (int i = i0; i < i1; ++i) {
+      const int w = v[i];
+      v[i] = run;
+      run = max(run, w);
     }
   }
-}
-
-template <typename T>
-struct LaneRows {  // lanes lane0 + j of a set; starts staged in shared memory
-  const int* st;
-  const T* __restrict__ upd;
-  long long lane0;
-  int W;
-  __device__ long long start(int j) const { return st[j]; }
-  __device__ long long width(int) const { return W; }
-  __device__ const T* base(int j) const { return upd + (lane0 + j) * W; }
-};
-
-template <typename T>
-struct PartRows {  // partial tiles of a heavy tile, over their ranges
-  const int2* __restrict__ range;  // tile-relative [x, y) per unit
-  const T* parts;
-  long long t0;
-  __device__ long long start(int k) const { return t0 + __ldcg(&range[k].x); }
-  __device__ long long width(int k) const {
-    const int2 r = __ldcg(&range[k]);
-    return r.y - r.x;
-  }
-  __device__ const T* base(int k) const {
-    return parts + (long long)k * kTile + __ldcg(&range[k].x);
-  }
-};
-
-// Adds lanes [l0, l1) of one set, staging their starts in shared memory.
-template <typename T>
-__device__ void add_lanes(T* acc, int* s_st, long long t0,
-                          const int* __restrict__ st,
-                          const T* __restrict__ upd, int W, int l0, int l1) {
-  for (int c0 = l0; c0 < l1; c0 += kStage) {
-    const int n = min(kStage, l1 - c0);
-    __syncthreads();  // the previous chunk's starts are no longer read
-    for (int i = threadIdx.x; i < n; i += kThreads) s_st[i] = st[c0 + i];
-    __syncthreads();
-    add_rows<false>(acc, t0, n, LaneRows<T>{s_st, upd, c0, W}, W <= kThreads);
-  }
-}
-
-// m = running maximum of s.  Blocks [0, a_blocks) scan set a, the rest set
-// b, one chunk of kScanChunk starts each; a block first takes the maximum of
-// every start before its chunk (reading them all keeps the blocks
-// independent: one launch, no pass over chunk totals).
-__global__ void __launch_bounds__(kScanThreads) window_add_runmax(
-    const int* __restrict__ sa, int La, int* __restrict__ ma,
-    const int* __restrict__ sb, int Lb, int* __restrict__ mb, int a_blocks) {
-  const bool in_a = (int)blockIdx.x < a_blocks;
-  const int* s = in_a ? sa : sb;
-  int* m = in_a ? ma : mb;
-  const int L = in_a ? La : Lb;
-  const int base = (in_a ? blockIdx.x : blockIdx.x - a_blocks) * kScanChunk;
-  __shared__ int warp_max[kScanThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  int pre = INT_MIN;
-  for (int i = threadIdx.x; i < base; i += kScanThreads) pre = max(pre, s[i]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    pre = max(pre, __shfl_xor_sync(0xffffffffu, pre, off));
-  }
-  if (lane == 0) warp_max[warp] = pre;
   __syncthreads();
-  int carry = warp_max[lane];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    carry = max(carry, __shfl_xor_sync(0xffffffffu, carry, off));
-  }
-  __syncthreads();  // every warp has read warp_max
+}
 
-  const int i0 = base + threadIdx.x * kScanPer;
-  int v[kScanPer];
+// out[i] = max(carry, s[0..i]) for i < n <= kRunChunk, by every thread of a
+// kPlanThreads block (out may be shared or global memory); returns
+// max(carry, s[0..n)).  Ends with a barrier.
+__device__ int block_runmax(const int* s, int n, int carry, int* out,
+                            int* warp_max) {
+  constexpr int kPer = kRunChunk / kPlanThreads;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = tid * kPer;
+  int v[kPer];
 #pragma unroll
-  for (int k = 0; k < kScanPer; ++k) v[k] = i0 + k < L ? s[i0 + k] : INT_MIN;
+  for (int k = 0; k < kPer; ++k) v[k] = i0 + k < n ? s[i0 + k] : INT_MIN;
   int run = INT_MIN;
 #pragma unroll
-  for (int k = 0; k < kScanPer; ++k) v[k] = run = max(run, v[k]);
+  for (int k = 0; k < kPer; ++k) v[k] = run = max(run, v[k]);
   int x = run;  // inclusive scan of the thread maxima within the warp
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const int y = __shfl_up_sync(0xffffffffu, x, off);
     if (lane >= off) x = max(x, y);
   }
-  const int before = __shfl_up_sync(0xffffffffu, x, 1);
+  int before = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) before = INT_MIN;
   if (lane == 31) warp_max[warp] = x;
   __syncthreads();
-  if (warp == 0) {
-    int w = warp_max[lane];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w = max(w, y);
-    }
-    warp_max[lane] = w;
+  int prefix = max(carry, before), all = carry;
+  for (int w = 0; w < kPlanThreads / 32; ++w) {
+    if (w < warp) prefix = max(prefix, warp_max[w]);
+    all = max(all, warp_max[w]);
   }
-  __syncthreads();
-  int prefix = carry;
-  if (warp > 0) prefix = max(prefix, warp_max[warp - 1]);
-  if (lane > 0) prefix = max(prefix, before);
 #pragma unroll
-  for (int k = 0; k < kScanPer; ++k) {
-    if (i0 + k < L) m[i0 + k] = max(prefix, v[k]);
+  for (int k = 0; k < kPer; ++k) {
+    if (i0 + k < n) out[i0 + k] = max(prefix, v[k]);
   }
+  __syncthreads();  // warp_max is read, out is written
+  return all;
 }
 
-// ranges[t] = (lo_a, hi_a, lo_b, hi_b); counts[t+1] = the units of tile t
-// if it has more than one (its blocks and scratch slots), counts[0] = 0, so
-// an inclusive scan gives the exclusive offsets; counters[t] = 0.
-__global__ void window_add_plan(const int* __restrict__ sa, int La, int Wa,
-                                const int* __restrict__ sb, int Lb, int Wb,
-                                int nt, int4* __restrict__ ranges,
-                                int* __restrict__ counts,
-                                unsigned* __restrict__ counters) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t == 0) counts[0] = 0;
-  if (t >= nt) return;
-  const long long t0 = (long long)t * kTile, t1 = t0 + kTile;
-  int4 r = make_int4(0, 0, 0, 0);
-  if (La > 0 && Wa > 0) {
-    r.x = lower_bound(sa, La, t0 - Wa + 1);
-    r.y = lower_bound(sa, La, t1);
+// sorted[i] = the running maximum of s within its chunk of `chunk` starts;
+// cmax[k] = chunk k's maximum.  Block 0 also zeroes heavy_total.
+__global__ void __launch_bounds__(kPlanThreads) window_add_runmax(
+    const int* __restrict__ s, int L, int chunk, int* __restrict__ sorted,
+    int* __restrict__ cmax, int* __restrict__ heavy_total) {
+  __shared__ int warp_max[kPlanThreads / 32];
+  if (blockIdx.x == 0 && threadIdx.x == 0) *heavy_total = 0;
+  const long long base = (long long)blockIdx.x * chunk;
+  if (base >= L) return;
+  const long long end = min(base + chunk, (long long)L);
+  int carry = INT_MIN;
+  for (long long sub = base; sub < end; sub += kRunChunk) {
+    carry = block_runmax(s + sub, (int)min((long long)kRunChunk, end - sub),
+                         carry, sorted + sub, warp_max);
   }
-  if (Lb > 0 && Wb > 0) {
-    r.z = lower_bound(sb, Lb, t0 - Wb + 1);
-    r.w = lower_bound(sb, Lb, t1);
-  }
-  ranges[t] = r;
-  const int u = tile_units(r, Wa, Wb);
-  counts[t + 1] = u > 1 ? u : 0;
-  counters[t] = 0;
+  if (threadIdx.x == 0) cmax[blockIdx.x] = carry;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 4) window_add_main(
-    const int* __restrict__ sa, const T* __restrict__ ua, int Wa,
-    const int* __restrict__ sb, const T* __restrict__ ub, int Wb,
-    const int4* __restrict__ ranges, const int* __restrict__ slot_off, int nt,
-    int heavy_blocks, long long n_out, T* __restrict__ out,
-    T* __restrict__ scratch, int2* __restrict__ part_range,
-    unsigned* __restrict__ counters) {
-  __shared__ T acc[kTile];
-  __shared__ int s_st[kStage];
-  __shared__ int s_tile, s_unit, s_last;
-
-  // slot_off [nt + 1]: exclusive offsets of the heavy tiles' units
-  if (threadIdx.x == 0) {
-    const int b = blockIdx.x;
-    int t = b - heavy_blocks, c = 0;
-    if (b < heavy_blocks) {
-      if (b >= slot_off[nt]) {
-        t = -1;  // spare block of the grid's upper bound
-      } else {
-        // the last tile whose units start at or before b
-        int lo = 0, hi = nt;
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) >> 1;
-          if (slot_off[mid] <= b) lo = mid; else hi = mid;
-        }
-        t = lo;
-        c = b - slot_off[t];
-      }
-    } else if (slot_off[t + 1] > slot_off[t]) {
-      t = -1;  // a heavy tile: its units ran in the first part of the grid
-    }
-    s_tile = t;
-    s_unit = c;
+// Lower bound of v among at(0), ..., at(n - 1) (non-decreasing).
+template <typename At>
+__device__ __forceinline__ int lower_bound(At at, int n, long long v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((long long)at(mid) < v) lo = mid + 1; else hi = mid;
   }
-  __syncthreads();
-  const int t = s_tile, c = s_unit;
-  if (t < 0) return;
+  return lo;
+}
 
-  // every thread touches only its own elements of acc: no barrier needed
-  for (int e = threadIdx.x; e < kTile; e += kThreads) acc[e] = T(0);
-  const int4 r = ranges[t];
-  const int units = tile_units(r, Wa, Wb);
-  const Unit u = unit_lanes(r, units, c);
+// The sorted starts, then the tiles' records.  `fused` (L <= kSmemStarts):
+// every block takes the running maximum of the raw starts into shared
+// memory itself, searches there, and block 0 writes them to `sorted` (no
+// running-max launch).  Else every block takes the prefix maximum of the
+// chunk maxima (the carries) and applies them to window_add_runmax's
+// starts in place (a start read before or after its fix gives the same
+// maximum).  Two threads per tile t, one binary search each (lo, hi),
+// joined by a shuffle; the first of the two writes the tile's record and,
+// for a heavy tile, takes its unit slots.
+__global__ void __launch_bounds__(kPlanThreads) window_add_plan(
+    const int* __restrict__ raw, int* sorted, int L, int W, int fused,
+    const int* __restrict__ cmax, int log_chunk, int chunks, int nt,
+    int4* __restrict__ recs, unsigned* __restrict__ tcnt,
+    int* __restrict__ heavy_total, int* __restrict__ unit_tile,
+    unsigned* __restrict__ gcnt, int heavy) {
+  __shared__ int carry[kMaxChunks];
+  __shared__ int s_st[kSmemStarts];
+  __shared__ int warp_max[kPlanThreads / 32];
+  const long long g = (long long)blockIdx.x * kPlanThreads + threadIdx.x;
+  if (fused) {
+    int c = INT_MIN;
+    for (int base = 0; base < L; base += kRunChunk) {
+      c = block_runmax(raw + base, min(kRunChunk, L - base), c, s_st + base,
+                       warp_max);
+    }
+    if (blockIdx.x == 0) {
+      for (int i = threadIdx.x; i < L; i += kPlanThreads) sorted[i] = s_st[i];
+    }
+  } else {
+    for (int k = threadIdx.x; k < chunks; k += kPlanThreads) carry[k] = cmax[k];
+    exclusive_max(carry, chunks);
+    const long long stride = (long long)gridDim.x * kPlanThreads;
+    for (long long i = g; i < L; i += stride) {
+      const int c = carry[i >> log_chunk];
+      if (c > sorted[i]) sorted[i] = c;
+    }
+  }
+  auto start = [&](int i) {
+    return fused ? s_st[i] : max(sorted[i], carry[i >> log_chunk]);
+  };
+
+  const int t = (int)min(g >> 1, (long long)nt), q = (int)(g & 1);
+  const int n = W > 0 ? L : 0;
   const long long t0 = (long long)t * kTile;
-  add_lanes(acc, s_st, t0, sa, ua, Wa, u.a0, u.a1);
-  add_lanes(acc, s_st, t0, sb, ub, Wb, u.b0, u.b1);
-
+  int b = 0;
+  if (t < nt && n > 0) b = lower_bound(start, n, q ? t0 + kTile : t0 - W + 1);
+  const int lane0 = threadIdx.x & 30;
+  const int lo = __shfl_sync(0xffffffffu, b, lane0);
+  const int hi = __shfl_sync(0xffffffffu, b, lane0 + 1);
+  if (t >= nt || q != 0) return;
+  const int units = tile_units(hi - lo, W);
+  const int4 rec = make_int4(lo, hi, hi > lo ? start(lo) : 0, -1);
   if (units == 1) {
-    for (int e = threadIdx.x; e < kTile && t0 + e < n_out; e += kThreads) {
-      out[t0 + e] = acc[e];
-    }
+    recs[t] = rec;
     return;
   }
-
-  // heavy tile: write the partial over the range the unit's lanes cover;
-  // the last of the tile's units to finish adds the partials in unit order
-  // and writes the tile
-  long long lo = t0 + kTile, hi = t0;
-  if (u.a1 > u.a0) {
-    lo = min(lo, (long long)sa[u.a0]);
-    hi = max(hi, (long long)sa[u.a1 - 1] + Wa);
-  }
-  if (u.b1 > u.b0) {
-    lo = min(lo, (long long)sb[u.b0]);
-    hi = max(hi, (long long)sb[u.b1 - 1] + Wb);
-  }
-  const int x0 = (int)(max(lo, t0) - t0), x1 = (int)(min(hi, t0 + kTile) - t0);
-  T* parts = scratch + (long long)slot_off[t] * kTile;
-  int2* ranges_t = part_range + slot_off[t];
-  for (int e = x0 + ((threadIdx.x - x0) & (kThreads - 1)); e < x1; e += kThreads) {
-    parts[(long long)c * kTile + e] = acc[e];
-  }
-  if (threadIdx.x == 0) ranges_t[c] = make_int2(x0, max(x0, x1));
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    s_last = atomicAdd(&counters[t], 1u) == (unsigned)(units - 1);
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int e = threadIdx.x; e < kTile; e += kThreads) acc[e] = T(0);
-  const PartRows<T> partials{ranges_t, parts, t0};
-  int narrow = 1;
-  for (int k = threadIdx.x; k < units; k += kThreads) {
-    narrow &= partials.width(k) <= kThreads;
-  }
-  add_rows<true>(acc, t0, units, partials, __syncthreads_and(narrow) != 0);
-  for (int e = threadIdx.x; e < kTile && t0 + e < n_out; e += kThreads) {
-    out[t0 + e] = acc[e];
-  }
+  const int off = atomicAdd(heavy_total, units);
+  if (off + units > heavy) __trap();  // the host's bound is wrong
+  recs[t] = make_int4(rec.x, rec.y, rec.z, off);
+  tcnt[t] = 0;
+  for (int c = 0; c < units; ++c) unit_tile[off + c] = t;
+  for (int c = 0; c < units; c += kGroup) gcnt[off + c] = 0;
 }
 
 template <typename T>
-int launch_main(const void* sa, const void* ua, int Wa, const void* sb,
-                const void* ub, int Wb, const void* ranges,
-                const void* slot_off, int nt, long long n_out,
-                int heavy_blocks, void* out, void* scratch, void* part_range,
-                void* counters, void* stream) {
-  const long long blocks = (long long)nt + heavy_blocks;
-  if (nt > 0) {
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    window_add_main<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)sa, (const T*)ua, Wa, (const int*)sb, (const T*)ub, Wb,
-        (const int4*)ranges, (const int*)slot_off, nt, heavy_blocks, n_out,
-        (T*)out, (T*)scratch, (int2*)part_range, (unsigned*)counters);
+int launch(const void* starts, int L, const void* upd, int W, long long n_out,
+           void* out, void* const* ws, int run_chunk, int heavy,
+           cudaStream_t stream) {
+  int log_chunk = 0;
+  while ((1LL << log_chunk) < run_chunk && log_chunk < 30) ++log_chunk;
+  if (run_chunk < kRunChunk || (1 << log_chunk) != run_chunk || heavy < 0 ||
+      L < 0 || W < 0 || n_out < 0 || ((uintptr_t)out & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  const long long nt = (n_out + kTile - 1) / kTile;
+  const int chunks = (int)(((long long)L + run_chunk - 1) / run_chunk);
+  if (chunks > kMaxChunks || nt + kHeavyBlocks > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nt == 0) return (int)cudaGetLastError();
+  int* sorted = (int*)ws[0];
+  int* cmax = (int*)ws[1];
+  int* heavy_total = (int*)ws[4];
+  const bool fused = L <= kSmemStarts;
+  if (fused) {
+    const cudaError_t e = cudaMemsetAsync(heavy_total, 0, sizeof(int), stream);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    window_add_runmax<<<std::max(chunks, 1), kPlanThreads, 0, stream>>>(
+        (const int*)starts, L, run_chunk, sorted, cmax, heavy_total);
+  }
+  const long long fix_blocks =
+      ((long long)L + 16 * kPlanThreads - 1) / (16 * kPlanThreads);
+  const long long plan_blocks = std::max(
+      (2 * nt + kPlanThreads - 1) / kPlanThreads, std::max(fix_blocks, 1LL));
+  window_add_plan<<<(unsigned)plan_blocks, kPlanThreads, 0, stream>>>(
+      (const int*)starts, sorted, L, W, (int)fused, cmax, log_chunk, chunks,
+      (int)nt, (int4*)ws[2], (unsigned*)ws[3], heavy_total, (int*)ws[5],
+      (unsigned*)ws[6], heavy);
+  Args<T> p{sorted, (const T*)upd, W,
+            (W & 3) == 0 && ((uintptr_t)upd & 15) == 0, n_out, (T*)out,
+            (const int4*)ws[2], (unsigned*)ws[3], heavy_total,
+            (const int*)ws[5], (unsigned*)ws[6], (T*)ws[7], heavy,
+            std::min(heavy, kHeavyBlocks)};
+  window_add_main<T><<<(unsigned)(nt + p.heavy_blocks), kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -397,48 +553,30 @@ int launch_main(const void* sa, const void* ua, int Wa, const void* sb,
 extern "C" int window_add_tile() { return kTile; }
 extern "C" long long window_add_unit_work() { return kUnitWork; }
 
-// Running maximum of both sets' starts into sorted_a / sorted_b, then the
-// plan over them.
-extern "C" int window_add_plan_launch(const void* sa, int La, int Wa,
-                                      const void* sb, int Lb, int Wb, int nt,
-                                      void* sorted_a, void* sorted_b,
-                                      void* ranges, void* counts,
-                                      void* counters, void* stream) {
-  const int a_blocks = (La + kScanChunk - 1) / kScanChunk;
-  const int b_blocks = (Lb + kScanChunk - 1) / kScanChunk;
-  if (a_blocks + b_blocks > 0) {
-    window_add_runmax<<<a_blocks + b_blocks, kScanThreads, 0,
-                        (cudaStream_t)stream>>>(
-        (const int*)sa, La, (int*)sorted_a, (const int*)sb, Lb, (int*)sorted_b,
-        a_blocks);
-  }
-  if (nt > 0) {
-    window_add_plan<<<(nt + kThreads - 1) / kThreads, kThreads, 0,
-                      (cudaStream_t)stream>>>(
-        (const int*)sorted_a, La, Wa, (const int*)sorted_b, Lb, Wb, nt,
-        (int4*)ranges, (int*)counts, (unsigned*)counters);
-  }
-  return (int)cudaGetLastError();
+extern "C" int window_add_blocks_per_sm() {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, window_add_main<float>, kThreads, 0);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
-extern "C" int window_add_i32(const void* sa, const void* ua, int Wa,
-                              const void* sb, const void* ub, int Wb,
-                              const void* ranges, const void* slot_off, int nt,
-                              long long n_out, int heavy_blocks, void* out,
-                              void* scratch, void* part_range, void* counters,
-                              void* stream) {
-  return launch_main<int32_t>(sa, ua, Wa, sb, ub, Wb, ranges, slot_off, nt,
-                              n_out, heavy_blocks, out, scratch, part_range,
-                              counters, stream);
-}
-
-extern "C" int window_add_f32(const void* sa, const void* ua, int Wa,
-                              const void* sb, const void* ub, int Wb,
-                              const void* ranges, const void* slot_off, int nt,
-                              long long n_out, int heavy_blocks, void* out,
-                              void* scratch, void* part_range, void* counters,
-                              void* stream) {
-  return launch_main<float>(sa, ua, Wa, sb, ub, Wb, ranges, slot_off, nt,
-                            n_out, heavy_blocks, out, scratch, part_range,
-                            counters, stream);
+// Three launches on `stream`: the running maximum, the plan, the main
+// kernel.  ws: the workspace's parts (sorted starts [L], chunk maxima,
+// recs [nt] int4, tcnt [nt], heavy_total [1], unit_tile [heavy], gcnt
+// [heavy], scratch [heavy, kTile]), each 16-byte aligned; out 16-byte
+// aligned.  Returns a CUDA error code.
+extern "C" int window_add_launch(const void* starts, int L, const void* upd,
+                                 int W, long long n_out, int is_f32, void* out,
+                                 void* sorted, void* cmax, void* recs,
+                                 void* tcnt, void* heavy_total,
+                                 void* unit_tile, void* gcnt, void* scratch,
+                                 int run_chunk, int heavy, void* stream) {
+  void* const ws[8] = {sorted, cmax, recs, tcnt, heavy_total, unit_tile, gcnt,
+                       scratch};
+  if (is_f32) {
+    return launch<float>(starts, L, upd, W, n_out, out, ws, run_chunk, heavy,
+                         (cudaStream_t)stream);
+  }
+  return launch<int32_t>(starts, L, upd, W, n_out, out, ws, run_chunk, heavy,
+                         (cudaStream_t)stream);
 }

@@ -16,12 +16,13 @@ windows tile the output, so every output element gets at most one
 nonzero term and the result is exact in int32 and in float32.
 
 For CUDA tensors the wrappers launch their kernels (built with nvcc for
-sm_90a at first use) on the current stream, without synchronising:
-``window_add`` the plan and main kernels of ``csrc/window_add.cu``,
-``window_add2`` the three kernels of ``csrc/window_add2.cu`` over one
-workspace sized here from the shapes (``plan_sizes``).  For CPU tensors
-they run the plain twins.  Any other device raises.  ``launches`` counts
-wrapper calls that launched their kernels.
+sm_90a at first use) on the current stream, without synchronising, each
+with one host call: ``window_add`` the three kernels of
+``csrc/window_add.cu``, ``window_add2`` the three kernels of
+``csrc/window_add2.cu``, each over one workspace sized here from the shapes
+alone (``plan_sizes1``, ``plan_sizes``).  A failed launch raises; nothing
+falls back.  For CPU tensors they run the plain twins.  Any other device
+raises.  ``launches`` counts wrapper calls that launched their kernels.
 """
 
 from __future__ import annotations
@@ -38,17 +39,31 @@ from ..utils import build
 launches = {"window_add": 0, "window_add2": 0}
 
 
+#: window_add.cu's output tile, the lane-elements of one unit of work and
+#: the least work a lane counts (checked against the library when it loads)
+TILE1 = 4096
+UNIT_WORK1 = 32768
+ROW_WORK1 = 1024
+#: window_add.cu's workspace, in order: (name, element bytes)
+WS_PARTS1 = (("sorted", 4), ("cmax", 4), ("recs", 16), ("tcnt", 4),
+             ("heavy_total", 4), ("unit_tile", 4), ("gcnt", 4), ("scratch", 4))
+
+
 def _declare(lib: C.CDLL) -> None:
-    p, i = C.c_void_p, C.c_int
+    p, i, ll = C.c_void_p, C.c_int, C.c_longlong
     lib.window_add_tile.restype = i
     lib.window_add_tile.argtypes = []
-    lib.window_add_unit_work.restype = C.c_longlong
+    lib.window_add_unit_work.restype = ll
     lib.window_add_unit_work.argtypes = []
-    lib.window_add_plan_launch.restype = i
-    lib.window_add_plan_launch.argtypes = [p, i, i, p, i, i, i, p, p, p, p, p, p]
-    for fn in (lib.window_add_i32, lib.window_add_f32):
-        fn.restype = i
-        fn.argtypes = [p, p, i, p, p, i, p, p, i, C.c_longlong, i, p, p, p, p, p]
+    lib.window_add_launch.restype = i
+    lib.window_add_launch.argtypes = ([p, i, p, i, ll, i, p]
+                                      + [p] * len(WS_PARTS1) + [i, i, p])
+    lib.window_add_blocks_per_sm.restype = i
+    lib.window_add_blocks_per_sm.argtypes = []
+    got = (lib.window_add_tile(), lib.window_add_unit_work())
+    if got != (TILE1, UNIT_WORK1):
+        raise build.BuildError(f"window_add: the library's tile and unit "
+                               f"{got} differ from ({TILE1}, {UNIT_WORK1})")
 
 
 #: window_add2.cu's output tile, the lane-elements of one unit of work and
@@ -96,36 +111,66 @@ class Plan(NamedTuple):
     nt: int        # output tiles
     heavy: int     # bound on the heavy tiles' units (scratch tiles)
     chunk: int     # starts per running-max chunk
-    offsets: tuple  # byte offset of each WS_PARTS part in the workspace
+    offsets: tuple  # byte offset of each workspace part
     nbytes: int    # the workspace's bytes
+
+
+def _chunk(*lengths: int) -> int:
+    """Starts per running-max chunk: a power of two, doubled until the
+    lane sets have at most MAX_CHUNKS chunks in all."""
+    chunk = RUN_CHUNK
+    while sum(-(-n // chunk) for n in lengths) > MAX_CHUNKS:
+        chunk *= 2
+    return chunk
+
+
+def _heavy_bound(sets, tile: int, row_work: int, unit_work: int) -> int:
+    """Bound on the units of all heavy tiles.  The plan counts a tile's work
+    as its lanes times max(min(W, tile), row_work); a lane overlaps at most
+    ceil((W - 1) / tile) + 1 tiles, so the work of all tiles is at most
+    ``spread``.  A heavy tile (work w > unit_work) takes ceil(w / unit_work)
+    < 2w / unit_work units, each with a scratch tile."""
+    spread = sum(L * (-(-(W - 1) // tile) + 1) * max(min(W, tile), row_work)
+                 for L, W in sets if W)
+    return 2 * (spread // unit_work) + 2
+
+
+def _layout(nt: int, heavy: int, chunk: int, parts, counts: dict) -> Plan:
+    """The workspace's parts in order, each 256-byte aligned."""
+    offsets, at = [], 0
+    for name, size in parts:
+        offsets.append(at)
+        at += -(-counts[name] * size // 256) * 256
+    return Plan(nt, heavy, chunk, tuple(offsets), at)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_sizes1(L: int, W: int, n_out: int) -> Plan:
+    """window_add.cu's grid and workspace (K3, one lane set) from the
+    shapes alone: ``heavy`` scratch tiles of TILE1 elements for the heavy
+    tiles' unit partials."""
+    nt = -(-n_out // TILE1)
+    heavy = _heavy_bound([(L, W)], TILE1, ROW_WORK1, UNIT_WORK1)
+    chunk = _chunk(L)
+    counts = {"sorted": L, "cmax": -(-L // chunk), "recs": nt, "tcnt": nt,
+              "heavy_total": 1, "unit_tile": heavy, "gcnt": heavy,
+              "scratch": heavy * TILE1}
+    return _layout(nt, heavy, chunk, WS_PARTS1, counts)
 
 
 @functools.lru_cache(maxsize=64)
 def plan_sizes(La: int, Wa: int, Lb: int, Wb: int, n_out: int) -> Plan:
-    """window_add2.cu's grid and workspace from the shapes alone.
-
-    The plan counts a tile's work as its lanes times max(min(W, TILE2),
-    ROW_WORK2); a lane overlaps at most ceil((W - 1) / TILE2) + 1 tiles,
-    so the work of all tiles is at most ``spread``.  A heavy tile (work
-    w > UNIT_WORK2) takes ceil(w / UNIT_WORK2) < 2w / UNIT_WORK2 units,
-    each with a scratch tile: ``heavy`` bounds the units of all heavy
-    tiles.  Workspace parts are 256-byte aligned."""
+    """window_add2.cu's grid and workspace (K4, two lane sets) from the
+    shapes alone: ``heavy`` scratch tiles of TILE2 elements for the heavy
+    tiles' unit partials."""
     nt = -(-n_out // TILE2)
-    spread = sum(L * (-(-(W - 1) // TILE2) + 1) * max(min(W, TILE2), ROW_WORK2)
-                 for L, W in ((La, Wa), (Lb, Wb)) if W)
-    heavy = 2 * (spread // UNIT_WORK2) + 2
-    chunk = RUN_CHUNK  # a power of two
-    while -(-La // chunk) + -(-Lb // chunk) > MAX_CHUNKS:
-        chunk *= 2
+    heavy = _heavy_bound([(La, Wa), (Lb, Wb)], TILE2, ROW_WORK2, UNIT_WORK2)
+    chunk = _chunk(La, Lb)
     counts = {"sorted": La + Lb, "cmax": -(-La // chunk) + -(-Lb // chunk),
               "ranges": nt, "tile_off": nt, "tcnt": nt, "heavy_total": 1,
               "unit_tile": heavy, "gcnt": heavy, "part_range": heavy,
               "scratch": heavy * TILE2}
-    offsets, at = [], 0
-    for name, size in WS_PARTS:
-        offsets.append(at)
-        at += -(-counts[name] * size // 256) * 256
-    return Plan(nt, heavy, chunk, tuple(offsets), at)
+    return _layout(nt, heavy, chunk, WS_PARTS, counts)
 
 
 def _scatter_plain(out: torch.Tensor, starts: torch.Tensor,
@@ -176,54 +221,29 @@ def _check_set(name: str, starts, upd, dev, dtype) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _window_add_cuda(name: str, sets, n_out: int, lib=None) -> torch.Tensor:
-    """Launch the plan and main kernels of ``csrc/window_add.cu`` (or of
-    ``lib``, a library with its interface) for one or two lane sets: K3,
-    and K4 as its first design (tools/torch_kernel_ab.py)."""
-    dev, dtype = sets[0][1].device, sets[0][1].dtype
-    for s, u in sets:
-        _check_set(name, s, u, dev, dtype)
+def _window_add1_cuda(starts: torch.Tensor, upd: torch.Tensor, n_out: int,
+                      lib=None, stream=None) -> torch.Tensor:
+    """Launch ``csrc/window_add.cu`` (or ``lib``, a library with its
+    interface) for one lane set on ``stream`` (default: the current one)."""
+    dev = upd.device
+    _check_set("window_add", starts, upd, dev, upd.dtype)
     if not 0 <= n_out < 2**31:
-        raise ValueError(f"{name}: n_out must be in [0, 2^31), got {n_out}")
+        raise ValueError(f"window_add: n_out must be in [0, 2^31), got {n_out}")
     lib = lib or load_library()
-    tile, unit_work = lib.window_add_tile(), lib.window_add_unit_work()
-    if len(sets) == 1:  # K3: set b is empty
-        sets = sets + [(sets[0][0][:0], sets[0][1][:0])]
-    (sa, ua), (sb, ub) = sets
-    La, Lb = sa.shape[0], sb.shape[0]
-    nt = -(-n_out // tile)
-    # the plan counts a tile's work as its lanes times min(W, tile); a lane
-    # overlaps at most m tiles, so the work of all tiles is at most
-    # `spread`.  A tile of work w > unit_work takes ceil(w / unit_work) < 2w
-    # / unit_work blocks, each with a scratch tile: `heavy` bounds them.
-    spread = sum(u.shape[0] * (-(-(u.shape[1] - 1) // tile) + 1)
-                 * min(u.shape[1], tile) for u in (ua, ub) if u.shape[1])
-    heavy = 2 * (spread // unit_work) + 2
-    # the running maximum of the starts (the tail padding lanes re-pointed)
-    sorted_ab = torch.empty((La + Lb,), dtype=torch.int32, device=dev)
-    ranges = torch.empty((max(nt, 1), 4), dtype=torch.int32, device=dev)
-    counts = torch.empty((nt + 1,), dtype=torch.int32, device=dev)
-    counters = torch.empty((max(nt, 1),), dtype=torch.int32, device=dev)
-    out = torch.empty((n_out,), dtype=dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.window_add_plan_launch(
-        sa.data_ptr(), La, ua.shape[1], sb.data_ptr(), Lb, ub.shape[1], nt,
-        sorted_ab.data_ptr(), sorted_ab[La:].data_ptr(), ranges.data_ptr(),
-        counts.data_ptr(), counters.data_ptr(), stream)
+    L, W = upd.shape
+    plan = plan_sizes1(L, W, n_out)
+    ws = torch.empty((plan.nbytes,), dtype=torch.uint8, device=dev)
+    out = torch.empty((n_out,), dtype=upd.dtype, device=dev)
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    base = ws.data_ptr()
+    rc = lib.window_add_launch(
+        starts.data_ptr(), L, upd.data_ptr(), W, n_out,
+        int(upd.dtype == torch.float32), out.data_ptr(),
+        *[base + o for o in plan.offsets], plan.chunk, plan.heavy, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} plan launch failed: CUDA error {rc}")
-    slot_off = torch.cumsum(counts, dim=0, dtype=torch.int32)
-    scratch = torch.empty((heavy, tile), dtype=dtype, device=dev)
-    part_range = torch.empty((heavy, 2), dtype=torch.int32, device=dev)
-    fn = lib.window_add_i32 if dtype == torch.int32 else lib.window_add_f32
-    rc = fn(sorted_ab.data_ptr(), ua.data_ptr(), ua.shape[1],
-            sorted_ab[La:].data_ptr(), ub.data_ptr(), ub.shape[1],
-            ranges.data_ptr(), slot_off.data_ptr(), nt, n_out, heavy,
-            out.data_ptr(), scratch.data_ptr(), part_range.data_ptr(),
-            counters.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    launches[name] += 1
+        raise RuntimeError(f"window_add launch failed: CUDA error {rc}")
+    launches["window_add"] += 1
     return out
 
 
@@ -268,7 +288,7 @@ def window_add(starts: torch.Tensor, upd: torch.Tensor,
                n_out: int) -> torch.Tensor:
     """``out[starts[l] + i] += upd[l, i]`` → flat ``[n_out]`` (K3)."""
     return _dispatch("window_add", window_add_plain, [(starts, upd)], n_out,
-                     lambda sets, n: _window_add_cuda("window_add", sets, n))
+                     lambda sets, n: _window_add1_cuda(*sets[0], n))
 
 
 def window_add2(starts_a: torch.Tensor, upd_a: torch.Tensor,

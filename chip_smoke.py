@@ -13,13 +13,13 @@ Phases:
      must match exactly, the synthesis (K2) within atol 1e-4 / rtol 1e-5
      (the sums run in another order), at the WAV + MP3 path's shapes; the
      window-add kernels K4 (FLAC values) and K3 (FLAC PCM) exactly, at the
-     16-file FLAC group's shapes.  Each is timed with CUDA events beside
+     16-file FLAC group's shapes (K3 also at the 24-bit mono group's).  Each is timed with CUDA events beside
      its twin, its bound (bytes or operations at the card's peak) and,
      for K3/K4, one ``index_add_`` call, all in milliseconds per launch
      (K1 runs one launch per bucket of the group; the phase prints the
      launches per pass and the longest lane's serial chain of codes; K3
      and K4 are also timed on the lanes before the zero tail of padding
-     lanes, and K4's device time per call is read from torch.profiler,
+     lanes, and their device time per call is read from torch.profiler,
      kernel by kernel, whole and without that tail);
   4. WAV + MP3 path: 16 WAV (10 s, 44.1 kHz stereo 16-bit, from the seed)
      + 16 copies of the committed 10 s 128 kbps joint-stereo MP3 + the
@@ -34,7 +34,12 @@ Phases:
      port's CPU path, every good file's PCM equal to the CPU path bit for
      bit and its integers against the STREAMINFO MD5, and that K3 and K4
      launched;
-  6. rates: after one warm run, 3 timed runs each of the WAV + MP3 folder,
+  6. the frame-chunked FLAC route: the music fixture with the port's
+     ``frontend.BIT_CAP`` shrunk to the file's size, so it decodes in
+     chunks of a few frames, K3 and K4 once per chunk, on the card and on
+     the CPU; checks the two bit for bit, the STREAMINFO MD5, and that K3
+     launched once per chunk;
+  7. rates: after one warm run, 3 timed runs each of the WAV + MP3 folder,
      16 FLAC files, and 16 WAV + 16 MP3 + 16 FLAC (decoded audio-seconds
      per second; informational).
 
@@ -411,15 +416,16 @@ def phase_kernels(dev) -> list[dict]:
     ]
 
 
-def _flac_windows(dev):
-    """The two window-add calls' inputs of the 16-file FLAC group, as the
-    FLAC path builds them (``stage="windows"`` of the device program)."""
+def _flac_windows(dev, path: str = MUSIC_FLAC, copies: int = N_FLAC):
+    """The two window-add calls' inputs of a FLAC group (by default the
+    16-file one), as the FLAC path builds them (``stage="windows"`` of the
+    device program)."""
     from audio_decoder_tpu_torch.codecs.flac import decoder as FD
     from audio_decoder_tpu_torch.codecs.flac import device as FV
     from audio_decoder_tpu_torch.codecs.flac import frontend
 
-    blob = open(MUSIC_FLAC, "rb").read()
-    analyses = frontend.analyze_batch([blob] * N_FLAC)
+    blob = open(path, "rb").read()
+    analyses = frontend.analyze_batch([blob] * copies)
     for a in analyses:
         if isinstance(a, Exception):
             fail(f"the FLAC fixture does not walk: {a!r}")
@@ -486,19 +492,30 @@ def phase_flac_kernels(dev) -> list[dict]:
             f"index_add_ {library_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
             f"kernel on the {[int(t.shape[0]) for t in live[::2]]} lanes "
             f"before the zero tail {live_ms:.4f} ms")
-        if tag == "K4":  # its device time, per kernel, whole and split
-            for label, args in (("", arrays), ("before the zero tail, ", live)):
-                kern = device_kernels(lambda a=args: fn(*a, n_out), 20)
-                per = ", ".join(f"{kernel_name(k)} {v:.4f}"
-                                for k, v in kern.items())
-                log(f"K4 device, {label}ms per call: {sum(kern.values()):.4f} "
-                    f"({per})")
+        # its device time, per kernel, whole and split
+        for label, args in (("", arrays), ("before the zero tail, ", live)):
+            kern = device_kernels(lambda a=args: fn(*a, n_out), 20)
+            per = ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in kern.items())
+            log(f"{tag} device, {label}ms per call: {sum(kern.values()):.4f} "
+                f"({per})")
         out.append(dict(
             name=name, route="cuda",
             source=f"audio_decoder_tpu_torch/csrc/{source}",
             replaces=replaces,
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=by, library_ms=library_ms))
+    # K3 at the second group's shapes: the 24-bit mono fixture (48 frame
+    # rows of 4096; the log counts starts that are not multiples of 4)
+    starts, upd, n_mono = _flac_windows(dev, MONO24_FLAC, 1)["window_add"]
+    got = PW.window_add(starts, upd, n_mono)
+    ref = PW.window_add_plain(starts, upd, n_mono)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        fail(f"K3 window_add differs from its plain twin at the mono group in "
+             f"{int((got != ref).sum())} of {n_mono} elements")
+    log(f"K3 window_add at the 24-bit mono group: exact (starts "
+        f"{tuple(starts.shape)} upd {tuple(upd.shape)}; "
+        f"{int((starts % 4 != 0).sum())} starts not multiples of 4)")
     return out
 
 
@@ -604,7 +621,6 @@ def write_flac_folder(folder: str, seed: int) -> dict:
 
 def phase_flac_path(folder: str, good: dict, dev) -> dict:
     import audio_decoder_tpu_torch as adt
-    from audio_decoder_tpu_torch.codecs.flac import frontend
     from audio_decoder_tpu_torch.ops import window_add as PW
 
     for k in PW.launches:
@@ -642,15 +658,59 @@ def phase_flac_path(folder: str, good: dict, dev) -> dict:
             fail(f"{name}.flac PCM on the card differs from the CPU path")
         if name not in good:
             continue
-        an = frontend.analyze(open(good[name], "rb").read())
-        ints = np.round(got.pcm.astype(np.float64)
-                        * 2.0 ** (got.bits_per_sample - 1)).astype(np.int64)
-        if frontend.verify_md5(an, ints) is not True:
+        if not _md5_ok(good[name], got):
             fail(f"{name}.flac fails its STREAMINFO MD5")
         checked += 1
     codes = {n: int(err[names[n]]) for n in ("corrupt", "truncated")}
     log(f"FLAC: {checked} files equal the CPU path bit for bit and pass "
         f"their STREAMINFO MD5; error codes {codes}")
+    return launches
+
+
+def _md5_ok(path: str, got) -> bool:
+    """The decoded file's integers against its STREAMINFO MD5."""
+    from audio_decoder_tpu_torch.codecs.flac import frontend
+
+    an = frontend.analyze(open(path, "rb").read())
+    ints = np.round(got.pcm.astype(np.float64)
+                    * 2.0 ** (got.bits_per_sample - 1)).astype(np.int64)
+    return frontend.verify_md5(an, ints) is True
+
+
+def phase_flac_chunked(dev) -> dict:
+    """The frame-chunked FLAC route: the music fixture past a shrunken
+    ``frontend.BIT_CAP`` decodes chunk by chunk, on the card and on the CPU."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.codecs.flac import frontend
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    cap = frontend.BIT_CAP
+    frontend.BIT_CAP = 8 * os.path.getsize(MUSIC_FLAC)  # the file is past it
+    try:
+        for k in PW.launches:
+            PW.launches[k] = 0
+        t0 = time.perf_counter()
+        gpu = adt.decode_paths([MUSIC_FLAC], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(PW.launches)
+        cpu = adt.decode_paths([MUSIC_FLAC], device="cpu")
+    finally:
+        frontend.BIT_CAP = cap
+    log(f"FLAC chunked route launches: {launches} ({wall:.3f} s on the card)")
+    if launches["window_add"] < 2:
+        fail(f"the chunked route launched K3 {launches['window_add']} times: "
+             "the file did not decode in chunks")
+    if int(gpu.err[0]) != 0 or int(cpu.err[0]) != 0:
+        fail(f"chunked route error codes {int(gpu.err[0])} (card), "
+             f"{int(cpu.err[0])} (CPU)")
+    got, ref = gpu.file(0), cpu.file(0)
+    if got.pcm.shape != ref.pcm.shape or not np.array_equal(got.pcm, ref.pcm):
+        fail("the chunked route's PCM on the card differs from the CPU path")
+    if not _md5_ok(MUSIC_FLAC, got):
+        fail("the chunked route's PCM fails its STREAMINFO MD5")
+    log(f"FLAC chunked route: {got.pcm.shape[0]} frames equal the CPU path "
+        f"bit for bit and pass the STREAMINFO MD5")
     return launches
 
 
@@ -765,6 +825,7 @@ def main() -> None:
         launches, _ = phase_main_path(folder, wavs, dev)
         good = write_flac_folder(flac_folder, args.seed)
         launches.update(phase_flac_path(flac_folder, good, dev))
+        phase_flac_chunked(dev)
         phase_rate(folder, flac_folder, card)
         if args.profile:
             phase_profile(flac_folder, card)

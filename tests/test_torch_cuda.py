@@ -9,8 +9,9 @@ suite's JAX conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 ``window_case`` also serves the CPU tests of the window-add twins
-(tests/test_torch_window_add.py), so both hold the same cases;
-``window2_cases`` (K4's own edges) also serves tools/rehearse_cuda.py.
+(tests/test_torch_window_add.py), so both hold the same cases; so do
+``window1_case`` (K3's own edges), which also serves
+tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges) does.
 """
 
 import os
@@ -72,6 +73,73 @@ def window_case(rng, L, W, n_live, tile_elems=512, dtype=np.int32):
     upd[:n_live] = np.where(live, upd[:n_live], 0)
     upd[n_live:] = 0
     return starts, upd, int(n_out)
+
+
+#: ids of ``window1_case``: K3's own edges
+WINDOW1_CASES = ("frames-f32", "frames-i32", "wide-unaligned-f32",
+                 "wide-unaligned-i32", "pile-up-f32", "pile-up-i32",
+                 "repointed-nonzero", "narrow-pile-up", "odd-width",
+                 "truncated-f32", "truncated-i32", "no-lanes", "n-out-0",
+                 "two-chunk-lanes", "many-lanes")
+
+
+def window1_case(cid: str):
+    """(starts, upd, n_out) of K3's edge ``cid``, from a fixed numpy seed.
+    Rows 2-3 output tiles of 4096 wide (8192 and 9000), at starts that are
+    multiples of 8192 like FLAC's stereo frames or at random starts (most
+    not multiples of 4); a pile-up of 320 padding rows on one start (a tile
+    of 321 rows); a re-pointed live lane and a padding lane with nonzero
+    updates; narrow rows piled up; a width that is not a multiple of 4;
+    windows cut by n_out (not a multiple of 4); no lanes; n_out = 0; more
+    lanes than one running-max chunk of 2048 (3,000) and than the plan
+    stages in shared memory (5,000, with a live start re-pointed across a
+    chunk boundary).  Every float32 case has at most one nonzero term per
+    output element."""
+    rng = np.random.default_rng(sum(map(ord, cid)))
+    dtype = np.float32 if cid.endswith("-f32") else np.int32
+    base = cid.rsplit("-", 1)[0] if cid.endswith(("-f32", "-i32")) else cid
+    if base == "frames":  # FLAC's stereo PCM rows: starts at k * 8192
+        W, n_live = 8192, 14
+        starts = np.zeros(n_live + 6, np.int32)
+        starts[:n_live] = np.arange(n_live) * W
+        starts[5:] += 3 * W  # a gap: tiles with no lane
+        upd = np.zeros((starts.size, W), dtype)
+        upd[:n_live] = _values(rng, (n_live, W), dtype)
+        upd[n_live - 1, W - 100:] = 0  # the last frame is short
+        return starts, upd, int(starts.max()) + W + 4096 + 37
+    if base == "wide-unaligned":
+        return window_case(rng, 24, 9000, 18, dtype=dtype)
+    if base == "pile-up":  # 320 padding rows: one tile of 321 rows
+        return window_case(rng, 330, 8192, 10, dtype=dtype)
+    if base == "truncated":
+        starts, upd, n_out = window_case(rng, 24, 8192, 20, dtype=dtype)
+        return starts, upd, int(starts[12]) + 4099
+    if cid == "repointed-nonzero":
+        starts, upd, n_out = window_case(rng, 330, 8192, 10)
+        starts[6] = starts[5] - 3  # below the lane before it
+        upd[200] = rng.integers(-99, 99, size=8192)  # a padding lane
+        return starts, upd, n_out
+    if cid == "narrow-pile-up":  # 1,500 rows of width 8 on one start
+        return window_case(rng, 1600, 8, 100)
+    if cid == "odd-width":  # rows that are not 16-byte aligned
+        return window_case(rng, 600, 4097, 40)
+    if cid == "two-chunk-lanes":
+        return window_case(rng, 3000, 64, 2500)
+    if cid == "many-lanes":
+        starts, upd, n_out = window_case(rng, 5000, 16, 4500)
+        starts[2100] = starts[2047] - 1  # below a start of the chunk before
+        return starts, upd, n_out
+    if cid == "no-lanes":
+        return np.zeros(0, np.int32), np.zeros((0, 8192), np.float32), 4099
+    if cid == "n-out-0":
+        return window_case(rng, 6, 8192, 4, dtype=np.float32)[:2] + (0,)
+    raise KeyError(cid)
+
+
+def _values(rng, shape, dtype):
+    if dtype == np.int32:
+        return rng.integers(-10**6, 10**6, size=shape).astype(dtype)
+    return rng.standard_normal(shape).astype(dtype)
 
 
 @pytest.fixture
@@ -373,6 +441,19 @@ def test_window_add_kernels_at_the_flac_group_shapes(cuda_device):
         assert torch.equal(got, ref), key
 
 
+def test_window_add_kernel_at_the_mono_group_shapes(cuda_device):
+    """K3 on the 24-bit mono fixture's own PCM inputs (the second FLAC
+    group's shapes: one channel, 48 frame rows of 4096)."""
+    blob = open(FLAC_FIXTURES[1], "rb").read()
+    args, st = FD.pack_wire(FF.analyze_batch([blob]), cuda_device)
+    starts, upd, n_out = FV.flac_decode_wire(*args, stage="windows",
+                                             **st)["window_add"]
+    got = PW.window_add(starts, upd, n_out)
+    ref = PW.window_add_plain(starts, upd, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
 def window2_cases():
     """(id, starts_a, upd_a, starts_b, upd_b, n_out): K4's edges.  Cases
     whose id starts with "unaligned" are run on update arrays that begin
@@ -481,6 +562,57 @@ def test_window_add2_raises_when_the_kernel_fails(cuda_device, monkeypatch):
         PW.window_add2(s, u, s, u, 16)
 
 
+@pytest.mark.parametrize("cid", WINDOW1_CASES + ("unaligned-view",))
+def test_window_add_kernel_edges(cuda_device, cid):
+    """K3 against its twin on its own edges: int32 exactly, float32 exactly
+    (one nonzero term per element); called twice, the same bits.
+    ``unaligned-view`` runs the pile-up on updates that begin one element
+    into their storage (the 4-byte path)."""
+    starts, upd, n_out = window1_case("pile-up-f32" if cid == "unaligned-view"
+                                      else cid)
+    s, u = _on(cuda_device, starts, upd)
+    if cid == "unaligned-view":
+        u = unaligned_view(u)
+        assert u.data_ptr() % 16 != 0
+    before = PW.launches["window_add"]
+    got = PW.window_add(s, u, n_out)
+    assert PW.launches["window_add"] == before + 1
+    again = PW.window_add(s, u, n_out)
+    ref = PW.window_add_plain(s, u, n_out)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == (n_out,)
+    assert torch.equal(got, ref)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_window_add_raises_when_the_kernel_fails(cuda_device, monkeypatch):
+    """No fallback: a launch that returns a CUDA error raises and counts no
+    launch, and so does a library that cannot be built."""
+    from audio_decoder_tpu_torch.utils import build
+
+    s, u = _on(cuda_device, np.zeros(4, np.int32), np.zeros((4, 8), np.int32))
+
+    class Failing:
+        @staticmethod
+        def window_add_launch(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(PW, "load_library", lambda: Failing)
+    before = PW.launches["window_add"]
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        PW.window_add(s, u, 16)
+    assert PW.launches["window_add"] == before
+    monkeypatch.undo()
+
+    def no_nvcc():
+        raise build.BuildError("nvcc not found")
+
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    with pytest.raises(build.BuildError):
+        PW.window_add(s, u, 16)
+
+
 def test_window_add_rejects_bad_inputs(cuda_device):
     s, u = _on(cuda_device, np.zeros(4, np.int32), np.zeros((4, 8), np.int32))
     with pytest.raises(ValueError, match="int32"):
@@ -505,3 +637,17 @@ def test_flac_decode_paths_cuda_matches_cpu(cuda_device):
               "valid_frames", "err"):
         assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
     assert torch.equal(gpu.data.cpu(), cpu.data)
+
+
+def test_flac_chunked_route_cuda_matches_cpu(cuda_device, monkeypatch):
+    """The music fixture past a shrunken ``BIT_CAP`` decodes frame-chunked
+    (K3 and K4 once per chunk) on the card bit for bit as on the CPU."""
+    path = FLAC_FIXTURES[0]
+    monkeypatch.setattr(FF, "BIT_CAP", 8 * os.path.getsize(path))
+    before = PW.launches["window_add"]
+    gpu = decode_paths([path], device=cuda_device)
+    assert PW.launches["window_add"] - before > 1  # one launch per chunk
+    cpu = decode_paths([path], device="cpu")
+    assert int(gpu.err[0]) == 0 and int(cpu.err[0]) == 0
+    assert np.array_equal(gpu.file(0).pcm, cpu.file(0).pcm)
+    assert int(gpu.valid_frames[0]) == int(cpu.valid_frames[0]) == 441000

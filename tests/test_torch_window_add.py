@@ -18,7 +18,8 @@ from jax import lax
 from audio_decoder_tpu.ops import window_add as JW
 from audio_decoder_tpu_torch.ops import window_add as PW
 
-from .test_torch_cuda import WINDOW_CASES, window_case
+from .test_torch_cuda import (WINDOW1_CASES, WINDOW_CASES, window1_case,
+                              window_case)
 
 
 def _oracle(starts, upd, n_out):
@@ -78,6 +79,31 @@ def test_window_add_plain_cross_tile_halo():
     got = _port(PW.window_add_plain, starts, upd, n_out)
     np.testing.assert_array_equal(got, jax_out)
     np.testing.assert_array_equal(got, _oracle(starts, upd, n_out))
+
+
+@pytest.mark.parametrize("cid", WINDOW1_CASES)
+def test_window_add_plain_k3_edges_match_jax(cid):
+    """K3's own edges (``window1_case``: rows 2-3 tiles of 4096 wide, starts
+    that are not multiples of 4, a pile-up of 320 padding rows, re-pointed
+    lanes with nonzero updates, windows cut by n_out, no lanes) == JAX
+    window_add in interpret mode, exactly, in int32 and float32.  JAX's
+    kernel takes no n_out of 0; there the twin gives an empty array."""
+    starts, upd, n_out = window1_case(cid)
+    got = _port(PW.window_add_plain, starts, upd, n_out)
+    assert got.dtype == upd.dtype and got.shape == (n_out,)
+    if n_out == 0:
+        return
+    jax_out = np.asarray(JW.window_add(jnp.asarray(starts), jnp.asarray(upd),
+                                       n_out, interpret=True))
+    np.testing.assert_array_equal(got, jax_out)
+    # the oracle neither re-points starts nor cuts windows at n_out (CLIP
+    # moves them): it applies where every nonzero lane is in order and fits
+    live = np.any(upd != 0, axis=1)
+    s = starts.astype(np.int64)
+    if upd.shape[1] <= n_out and np.all(
+            (s == np.maximum.accumulate(s))[live]) and np.all(
+            (s + upd.shape[1] <= n_out)[live]):
+        np.testing.assert_array_equal(got, _oracle(starts, upd, n_out))
 
 
 @pytest.mark.parametrize("seed,Wa,Wb", [(5, 256, 8), (6, 520, 96)])

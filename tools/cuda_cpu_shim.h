@@ -10,6 +10,8 @@
 // cp.async a memcpy at issue time (commit and wait do nothing), so a kernel
 // that reads a staged buffer before its wait still passes here: only the
 // card shows that.  Atomics are the compiler's, fences are full fences.
+// The cache-hinted loads and stores (__ldg, __ldcg, __stcg, __stwb) are
+// plain copies that abort on an access the card would find misaligned.
 // Sources guard their PTX helpers with `#ifndef CUDA_CPU_SHIM`.
 
 #pragma once
@@ -91,6 +93,10 @@ template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
                                                                  size_t) {
   *n = 1;  // one block at a time here
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
   return cudaSuccess;
 }
 
@@ -181,12 +187,50 @@ template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int m) {
   return shim::shfl(v, (shim::tid & 31) ^ m);
 }
+// Loads and stores of a T check the alignment its width needs on the card.
+template <class T>
+inline void shim_check_aligned(const void* p) {
+  static_assert((sizeof(T) & (sizeof(T) - 1)) == 0, "odd-sized access");
+  if ((uintptr_t)p & (sizeof(T) - 1)) {
+    std::fprintf(stderr, "cuda_cpu_shim: %zu-byte access not aligned (block "
+                 "%u thread %u)\n", sizeof(T), blockIdx.x, threadIdx.x);
+    std::abort();
+  }
+}
 template <class T>
 inline T __ldcg(const T* p) {
+  shim_check_aligned<T>(p);
   std::atomic_thread_fence(std::memory_order_acquire);
   T v;
   std::memcpy(&v, (const void*)p, sizeof(T));
   return v;
+}
+template <class T>
+inline T __ldg(const T* p) {
+  shim_check_aligned<T>(p);
+  T v;
+  std::memcpy(&v, (const void*)p, sizeof(T));
+  return v;
+}
+template <class T>
+inline void __stcg(T* p, T v) {
+  shim_check_aligned<T>(p);
+  std::memcpy((void*)p, &v, sizeof(T));
+}
+template <class T>
+inline void __stwb(T* p, T v) {
+  shim_check_aligned<T>(p);
+  std::memcpy((void*)p, &v, sizeof(T));
+}
+inline float __int_as_float(int x) {
+  float f;
+  std::memcpy(&f, &x, 4);
+  return f;
+}
+inline int __float_as_int(float f) {
+  int x;
+  std::memcpy(&x, &f, 4);
+  return x;
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);

@@ -16,11 +16,14 @@ Usage:
   python tools/rehearse_cuda.py [--only ID] [SOURCE]
 
 SOURCE defaults to ``audio_decoder_tpu_torch/csrc/window_add2.cu``; a file
-of that name (a copy being edited, say) is run on the K4 cases of ``tests/test_torch_cuda.py`` (``window2_cases``),
-each held against ``window_add2_plain`` as the card's tests hold it
-(``window2_matches``: int32 exactly, float32 within 2e-3 of the float64
-sum) and called twice with identical results.  Another source is only
-built.
+of that name (a copy being edited, say) is run on the K4 cases of
+``tests/test_torch_cuda.py`` (``window2_cases``), each held against
+``window_add2_plain`` as the card's tests hold it (``window2_matches``:
+int32 exactly, float32 within 2e-3 of the float64 sum) and called twice
+with identical results.  A file named ``window_add.cu`` (K3) is run the
+same way on K3's cases (``WINDOW1_CASES``, and the pile-up on updates that
+begin one element into their storage), held exactly against
+``window_add_plain``.  Another source is only built.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from audio_decoder_tpu_torch.ops import window_add as PW  # noqa: E402
 SHIM = os.path.join(ROOT, "tools", "cuda_cpu_shim.h")
 OUT = os.path.join(ROOT, "build", "rehearse")
 K4 = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "window_add2.cu")
+K3 = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "window_add.cu")
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                      re.S)
@@ -124,6 +128,36 @@ def rehearse_k4(so: str, only: str | None) -> None:
                              f"{ref[bad[:8]].tolist()}")
 
 
+def rehearse_k3(so: str, only: str | None) -> None:
+    from tests.test_torch_cuda import WINDOW1_CASES, unaligned_view, window1_case
+
+    lib = C.CDLL(so)
+    PW._declare(lib)
+    for cid in WINDOW1_CASES + ("unaligned-view",):
+        if only and cid != only:
+            continue
+        t0 = time.perf_counter()
+        starts, upd, n_out = window1_case(
+            "pile-up-f32" if cid == "unaligned-view" else cid)
+        s, u = torch.as_tensor(starts), torch.as_tensor(upd)
+        if cid == "unaligned-view":
+            u = unaligned_view(u)
+        got = PW._window_add1_cuda(s, u, n_out, lib=lib, stream=0)
+        again = PW._window_add1_cuda(s, u, n_out, lib=lib, stream=0)
+        ref = PW.window_add_plain(s, u, n_out)
+        ok = torch.equal(got, ref) and torch.equal(got.view(torch.int32),
+                                                   again.view(torch.int32))
+        plan = PW.plan_sizes1(u.shape[0], u.shape[1], n_out)
+        print(f"{cid}: {'ok' if ok else 'DIFFERS'} (tiles {plan.nt}, heavy "
+              f"bound {plan.heavy}; {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if not ok:
+            bad = torch.nonzero(got != ref).flatten()
+            raise SystemExit(f"{cid}: {bad.numel()} elements differ, first "
+                             f"{bad[:8].tolist()}: {got[bad[:8]].tolist()} vs "
+                             f"{ref[bad[:8]].tolist()}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("source", nargs="?", default=K4)
@@ -133,6 +167,8 @@ def main() -> None:
     print(f"built {so}", flush=True)
     if os.path.basename(args.source) == os.path.basename(K4):
         rehearse_k4(so, args.only)
+    elif os.path.basename(args.source) == os.path.basename(K3):
+        rehearse_k3(so, args.only)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,12 @@
 Runs on one NVIDIA GPU, on the inputs ``chip_smoke.py`` gives the kernels:
 the three entropy-scan (K1) launches of the 16-file stereo MP3 group's
 buckets, the synthesis (K2) of the same group's subband samples, and the
-FLAC value assembly (K4) of the 16-file FLAC group.  Each version is a
-``.cu`` source with the plain C interface of
+FLAC value assembly (K4) and PCM assembly (K3) of the 16-file FLAC group.
+Each version is a ``.cu`` source with the plain C interface of
 ``audio_decoder_tpu_torch/csrc/mp3_entropy.cu`` (K1), ``mp3_synth.cu``
-(K2) or ``window_add2.cu`` (K4), built here with the port's nvcc flags.
-A version's tables or interface are named after a colon:
+(K2), ``window_add2.cu`` (K4) or ``window_add.cu`` (K3), built here with
+the port's nvcc flags.  A version's tables or interface are named after a
+colon:
 
 * K1 ``two_level`` (the default): the interface of the source in the tree
   (``huffman_device``'s two-level table, its first-level bases and the
@@ -16,8 +17,13 @@ A version's tables or interface are named after a colon:
 * K2 ``folded`` (the default): ``synth_kernel.fold_synth_n(SYNTH_N)``;
   ``full``: SYNTH_N itself (the first design's);
 * K4 ``ws`` (the default): ``window_add2.cu``'s three launches over one
-  workspace; ``plan``: the first design's interface (``window_add.cu``'s
-  plan launch, ``torch.cumsum``, then its main kernel).
+  workspace; ``plan``: the first design's interface (the first
+  ``window_add.cu``, for both K3 and K4: its plan launch, ``torch.cumsum``,
+  then its main kernel, launched by this tool's own copy of that sequence,
+  ``first_design_call``);
+* K3 ``ws`` (the default): ``window_add.cu``'s three launches over one
+  workspace; ``plan``: the first design as above, one lane set; ``ws2``: a
+  ``window_add2.cu`` source called with set b empty.
 
 Every version is first held against the plain twin (K1 exactly, K2 within
 atol 1e-4 / rtol 1e-5), then timed with CUDA events in turns (the versions
@@ -30,24 +36,33 @@ lanes before the zero tails of padding lanes, each set's zero tail alone,
 no lanes); each is timed by CUDA events on the whole group and on the
 lanes before the zero tails, and every kernel of a call (K4 is one
 wrapper call of up to four kernels) is listed with its device time per
-call on each part.  With ``--k4``, K3 (``window_add``, which stays on the
-first design) is timed in the same call, and so is a yardstick of the
-card's memory: a copy of set a's updates.  Prints one line per
-version with its turns and device time, in milliseconds per launch,
-beside the card's name and power limit, and writes them to
+call on each part.  With ``--k4``, K3 (``window_add``) is timed in the
+same call, and so is a yardstick of the card's memory: a copy of set a's
+updates.  K3 versions (``--k3``) are held exactly against
+``window_add_plain`` on the group's PCM inputs and on probes of them (the
+one-row tiles alone: the live frames packed end to end; the pile-up tiles
+alone: the last live frame and the padding rows on one start; no lanes),
+timed by CUDA events in turns on the group beside one ``index_add_`` call
+of the same sum and a copy of the updates, with every kernel's device time
+per call on each probe; the tiles' lane counts are printed first.  Prints
+one line per version with its turns and device time, in milliseconds per
+launch, beside the card's name and power limit, and writes them to
 ``kernel_ab.json`` in chip_smoke.py's output directory (``OUT_DIR``).
 
 Usage (the first design's sources are in git history):
   git show cf3a5a4:audio_decoder_tpu_torch/csrc/mp3_entropy.cu > build/ab/k1_pr1.cu
   git show cf3a5a4:audio_decoder_tpu_torch/csrc/mp3_synth.cu > build/ab/k2_pr1.cu
-  git show 727c5f2:audio_decoder_tpu_torch/csrc/window_add.cu > build/ab/k4_pr2.cu
+  git show 727c5f2:audio_decoder_tpu_torch/csrc/window_add.cu > build/ab/window_add_first.cu
   python tools/torch_kernel_ab.py \\
       --k1 pr1=build/ab/k1_pr1.cu:flat \\
       --k1 new=audio_decoder_tpu_torch/csrc/mp3_entropy.cu \\
       --k2 pr1=build/ab/k2_pr1.cu:full \\
       --k2 new=audio_decoder_tpu_torch/csrc/mp3_synth.cu \\
-      --k4 pr2=build/ab/k4_pr2.cu:plan \\
-      --k4 new=audio_decoder_tpu_torch/csrc/window_add2.cu
+      --k4 first=build/ab/window_add_first.cu:plan \\
+      --k4 new=audio_decoder_tpu_torch/csrc/window_add2.cu \\
+      --k3 first=build/ab/window_add_first.cu:plan \\
+      --k3 k4=audio_decoder_tpu_torch/csrc/window_add2.cu:ws2 \\
+      --k3 new=audio_decoder_tpu_torch/csrc/window_add.cu
 """
 
 from __future__ import annotations
@@ -72,7 +87,7 @@ from audio_decoder_tpu_torch.ops import window_add as PW  # noqa: E402
 from audio_decoder_tpu_torch.utils import build  # noqa: E402
 
 TABLES = {"k1": ("two_level", "flat"), "k2": ("folded", "full"),
-          "k4": ("ws", "plan")}
+          "k4": ("ws", "plan"), "k3": ("ws", "plan", "ws2")}
 
 
 def parse_version(kernel: str, spec: str) -> tuple[str, str, str]:
@@ -95,22 +110,90 @@ def _declare_flat(lib: C.CDLL) -> None:
     fn.restype = C.c_int
 
 
+def _declare_first(lib: C.CDLL) -> None:
+    """The first window-add design's interface (one ``window_add.cu`` for
+    K3 and K4)."""
+    p, i = C.c_void_p, C.c_int
+    lib.window_add_tile.restype = i
+    lib.window_add_tile.argtypes = []
+    lib.window_add_unit_work.restype = C.c_longlong
+    lib.window_add_unit_work.argtypes = []
+    lib.window_add_plan_launch.restype = i
+    lib.window_add_plan_launch.argtypes = [p, i, i, p, i, i, i, p, p, p, p, p, p]
+    for fn in (lib.window_add_i32, lib.window_add_f32):
+        fn.restype = i
+        fn.argtypes = [p, p, i, p, p, i, p, p, i, C.c_longlong, i, p, p, p, p, p]
+
+
 def load(kernel: str, name: str, path: str, tables: str) -> C.CDLL:
     so = build.build_shared(f"ab_{kernel}_{name}", build.nvcc_path(),
                             build.NVCC_FLAGS, [path])
     lib = C.CDLL(so)
     declare = {"two_level": HK._declare, "flat": _declare_flat,
-               "ws": PW._declare2, "plan": PW._declare}
+               "ws": PW._declare if kernel == "k3" else PW._declare2,
+               "ws2": PW._declare2, "plan": _declare_first}
     declare.get(tables, SK._declare)(lib)
     return lib
+
+
+def first_design_call(lib: C.CDLL, sets, n_out: int) -> torch.Tensor:
+    """The first window-add design's launch sequence for one or two lane
+    sets: the running max and plan launch, ``torch.cumsum`` of the heavy
+    tiles' unit counts, then the main kernel."""
+    dev, dtype = sets[0][1].device, sets[0][1].dtype
+    tile, unit_work = lib.window_add_tile(), lib.window_add_unit_work()
+    if len(sets) == 1:  # K3: set b is empty
+        sets = sets + [(sets[0][0][:0], sets[0][1][:0])]
+    (sa, ua), (sb, ub) = sets
+    La, Lb = sa.shape[0], sb.shape[0]
+    nt = -(-n_out // tile)
+    spread = sum(u.shape[0] * (-(-(u.shape[1] - 1) // tile) + 1)
+                 * min(u.shape[1], tile) for u in (ua, ub) if u.shape[1])
+    heavy = 2 * (spread // unit_work) + 2
+    sorted_ab = torch.empty((La + Lb,), dtype=torch.int32, device=dev)
+    ranges = torch.empty((max(nt, 1), 4), dtype=torch.int32, device=dev)
+    counts = torch.empty((nt + 1,), dtype=torch.int32, device=dev)
+    counters = torch.empty((max(nt, 1),), dtype=torch.int32, device=dev)
+    out = torch.empty((n_out,), dtype=dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.window_add_plan_launch(
+        sa.data_ptr(), La, ua.shape[1], sb.data_ptr(), Lb, ub.shape[1], nt,
+        sorted_ab.data_ptr(), sorted_ab[La:].data_ptr(), ranges.data_ptr(),
+        counts.data_ptr(), counters.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"plan launch failed: CUDA error {rc}")
+    slot_off = torch.cumsum(counts, dim=0, dtype=torch.int32)
+    scratch = torch.empty((heavy, tile), dtype=dtype, device=dev)
+    part_range = torch.empty((heavy, 2), dtype=torch.int32, device=dev)
+    fn = lib.window_add_i32 if dtype == torch.int32 else lib.window_add_f32
+    rc = fn(sorted_ab.data_ptr(), ua.data_ptr(), ua.shape[1],
+            sorted_ab[La:].data_ptr(), ub.data_ptr(), ub.shape[1],
+            ranges.data_ptr(), slot_off.data_ptr(), nt, n_out, heavy,
+            out.data_ptr(), scratch.data_ptr(), part_range.data_ptr(),
+            counters.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"main launch failed: CUDA error {rc}")
+    return out
 
 
 def k4_call(lib: C.CDLL, iface: str, arrays, n_out: int):
     """One K4 call through ``lib``, launched as the wrapper launches it."""
     sets = [tuple(arrays[0:2]), tuple(arrays[2:4])]
     if iface == "plan":
-        return PW._window_add_cuda("window_add2", sets, n_out, lib=lib)
+        return first_design_call(lib, sets, n_out)
     return PW._window_add2_cuda(sets, n_out, lib=lib)
+
+
+def k3_call(lib: C.CDLL, iface: str, starts, upd, n_out: int):
+    """One K3 call through ``lib``: its own wrapper's launch (``ws``), the
+    first design's sequence (``plan``) or window_add2.cu's with set b empty
+    (``ws2``)."""
+    if iface == "plan":
+        return first_design_call(lib, [(starts, upd)], n_out)
+    if iface == "ws2":
+        return PW._window_add2_cuda([(starts, upd), (starts[:0], upd[:0])],
+                                    n_out, lib=lib)
+    return PW._window_add1_cuda(starts, upd, n_out, lib=lib)
 
 
 def k1_pass(lib: C.CDLL, tables: str, main, parts):
@@ -232,7 +315,7 @@ def run_k4(specs: list[str], rounds: int, reps: int, card: str) -> dict:
     k3_kern = CS.device_kernels(lambda: PW.window_add(*k3), reps)
     result["k3"] = {"turns_ms": k3_turns, "device_ms": sum(k3_kern.values()),
                     "kernels": k3_kern}
-    print(f"k3 (window_add.cu, unchanged): ms per call "
+    print(f"k3 (window_add.cu): ms per call "
           f"{['%.4f' % x for x in k3_turns]} mean "
           f"{sum(k3_turns) / len(k3_turns):.4f}; device "
           f"{sum(k3_kern.values()):.4f} ms per call  [{card}]", flush=True)
@@ -246,6 +329,99 @@ def run_k4(specs: list[str], rounds: int, reps: int, card: str) -> dict:
     print(f"yardstick: copy of set a's updates, {mb:.1f} MB moved, "
           f"{copy_ms:.4f} ms ({mb / copy_ms / 1e3:.3f} TB/s)  [{card}]",
           flush=True)
+    return result
+
+
+def tile_census(starts, W: int, n_out: int) -> dict:
+    """How many of K3's output tiles (of ``PW.TILE1`` elements) have how
+    many lanes, with the starts re-pointed, and how the live lanes' starts
+    align."""
+    s = torch.cummax(starts.to(torch.int64), 0).values
+    t0 = torch.arange(0, n_out, PW.TILE1, dtype=torch.int64, device=s.device)
+    n = (torch.searchsorted(s, t0 + PW.TILE1)
+         - torch.searchsorted(s, t0 - W + 1)).cpu()
+    rows, tiles = torch.unique(n, return_counts=True)
+    live = starts[s == starts.to(torch.int64)]
+    return {"tiles": int(n.numel()),
+            "tiles_by_lanes": {int(r): int(t) for r, t in zip(rows, tiles)},
+            "starts_multiple_of_8192": bool((live % 8192 == 0).all()),
+            "starts_multiple_of_4": bool((live % 4 == 0).all())}
+
+
+def k3_probes(starts, upd, n_out) -> dict:
+    """K3's inputs and probes of them: the one-row tiles alone (the live
+    frames packed end to end at multiples of W), the pile-up tiles alone
+    (the last live frame and the zero padding rows, all at start 0), and
+    no lanes (the output's zeros)."""
+    W = upd.shape[1]
+    nz = torch.nonzero(upd.ne(0).any(1))
+    n = int(nz.max()) + 1 if nz.numel() else 0
+    dev = upd.device
+    packed = torch.arange(n, dtype=torch.int32, device=dev) * W
+    pile = torch.zeros((upd.shape[0] - n + 1,), dtype=torch.int32, device=dev)
+    return {"full": (starts, upd, n_out),
+            "one-row tiles": (packed, upd[:n], n * W),
+            "pile-up tiles": (pile, upd[n - 1:], W),
+            "no lanes": (starts[:0], upd[:0], n_out)}
+
+
+def run_k3(specs: list[str], rounds: int, reps: int, card: str) -> dict:
+    """K3 versions on the 16-file FLAC group's PCM inputs, beside one
+    ``index_add_`` call and a copy of the updates."""
+    starts, upd, n_out = CS._flac_windows(torch.device("cuda"))["window_add"]
+    census = tile_census(starts, upd.shape[1], n_out)
+    print(f"k3 inputs: starts {tuple(starts.shape)}, upd {tuple(upd.shape)} "
+          f"{upd.dtype}, n_out {n_out}; {census}", flush=True)
+    parts = k3_probes(starts, upd, n_out)
+    result = {"census": census, "n_out": n_out,
+              "probes": {k: [int(a[1].shape[0]), int(a[2])]
+                         for k, a in parts.items()},
+              "bound_ms": {k: CS.bound(CS.nbytes(*a[:2]) + a[2] * 4)[0]
+                           for k, a in parts.items()}}
+    fns = {}
+    for spec in specs:
+        name, path, iface = parse_version("k3", spec)
+        lib = load("k3", name, path, iface)
+        for k, a in parts.items():
+            got, again = k3_call(lib, iface, *a), k3_call(lib, iface, *a)
+            if not torch.equal(got, PW.window_add_plain(*a)):
+                raise SystemExit(f"k3 {name} differs from window_add_plain "
+                                 f"on {k}")
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                raise SystemExit(f"k3 {name} gives other bits a second time "
+                                 f"on {k}")
+        occ = {"ws": "window_add_blocks_per_sm",
+               "ws2": "window_add2_blocks_per_sm"}.get(iface)
+        occ = getattr(lib, occ)() if occ else None
+        print(f"k3 {name} ({iface}): exact and repeatable on {list(parts)}; "
+              f"main kernel blocks per SM {occ}", flush=True)
+        fns[name] = {k: (lambda lib=lib, iface=iface, a=a: k3_call(lib, iface, *a))
+                     for k, a in parts.items()}
+    dst = torch.empty_like(upd)
+    timed = {name: v["full"] for name, v in fns.items()}
+    timed["index_add_"] = CS._index_add_call([(starts, upd)], n_out)
+    timed["copy"] = lambda: dst.copy_(upd)
+    turns = in_turns(timed, rounds, reps)
+    mb = (CS.nbytes(starts, upd) + n_out * 4) / 1e6
+    for name, t in turns.items():
+        mean = sum(t) / len(t)
+        kern = CS.device_kernels(timed[name], reps)
+        dev_ms = sum(kern.values())
+        result[name] = {"turns_ms": t, "device_ms": dev_ms, "device": {"full": kern}}
+        print(f"k3 {name}: ms per call {['%.4f' % x for x in t]} mean "
+              f"{mean:.4f}; device {dev_ms:.4f} ms per call "
+              f"({mb / dev_ms / 1e3:.3f} TB/s of K3's {mb:.1f} MB); bound "
+              f"{result['bound_ms']['full']:.4f} ms  [{card}]", flush=True)
+    for name in fns:
+        for k, fn in fns[name].items():
+            kern = CS.device_kernels(fn, reps)
+            result[name]["device"][k] = kern
+            per = ", ".join(f"{CS.kernel_name(n)} {v:.4f}" for n, v in kern.items())
+            print(f"k3 {name}: device on {k} (bound "
+                  f"{result['bound_ms'][k]:.4f}): {sum(kern.values()):.4f} ms "
+                  f"per call ({per})", flush=True)
+    print(f"yardstick: the copy moves {2 * CS.nbytes(upd) / 1e6:.1f} MB  "
+          f"[{card}]", flush=True)
     return result
 
 
@@ -287,6 +463,7 @@ def main() -> None:
     ap.add_argument("--k1", action="append", default=[], metavar="NAME=PATH[:TABLES]")
     ap.add_argument("--k2", action="append", default=[], metavar="NAME=PATH[:TABLES]")
     ap.add_argument("--k4", action="append", default=[], metavar="NAME=PATH[:IFACE]")
+    ap.add_argument("--k3", action="append", default=[], metavar="NAME=PATH[:IFACE]")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
@@ -297,6 +474,8 @@ def main() -> None:
     result = {"card": card, "k1": {}, "k2": {}}
     if args.k4:
         result["k4"] = run_k4(args.k4, args.rounds, args.reps, card)
+    if args.k3:
+        result["k3"] = run_k3(args.k3, args.rounds, args.reps, card)
     if not (args.k1 or args.k2):
         write(result)
         return
