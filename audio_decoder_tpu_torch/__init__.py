@@ -1,10 +1,11 @@
 """audio_decoder_tpu_torch — the PyTorch/CUDA port of audio_decoder_tpu.
 
-Batched decode of mixed WAV and MPEG Layer III folders into one f32
-``AudioBatch`` on an explicit device.  On CUDA the MP3 entropy scan and
-the synthesis filterbank run as hand-written kernels (``csrc/``, built
-with nvcc for sm_90a at first use); on the CPU their plain torch twins
-run.  The package imports torch and never jax.
+Batched decode of mixed WAV, AIFF/AIFF-C, AU, CAF, MPEG Layer I/II/III
+and FLAC folders into one f32 ``AudioBatch`` on an explicit device.  On
+CUDA the MP3 entropy scan, the MPEG synthesis filterbank and the FLAC
+window-add assembly run as hand-written kernels (``csrc/``, built with
+nvcc for sm_90a at first use); on the CPU their plain torch twins run.
+The package imports torch and never jax.
 
 Precision: float32 products must run in full f32 (the JAX package pins
 ``Precision.HIGHEST``); importing the package therefore sets

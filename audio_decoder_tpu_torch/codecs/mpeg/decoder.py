@@ -1,11 +1,16 @@
-"""Batched MPEG Layer III decode orchestration.
+"""Batched MPEG audio decode orchestration, routed by layer.
 
-The host front-end (the C++ ``mp3fe`` library, native.py) walks every
-blob once and emits the raw main_data bytes plus per-lane side metadata;
-the entropy decode and DSP then run as one ``dsp.mp3_decode_fused`` call
-per (channels, joint-stereo, granules-per-frame) group on the requested
-device.  Granule counts and main_data widths are padded to buckets.
-Layers I and II are not ported yet and raise ``NotImplementedError``.
+Layer III: the host front-end (the C++ ``mp3fe`` library, native.py)
+walks every blob once and emits the raw main_data bytes plus per-lane
+side metadata; the entropy decode and DSP then run as one
+``dsp.mp3_decode_fused`` call per (channels, joint-stereo,
+granules-per-frame) group on the requested device.  Granule counts and
+main_data widths are padded to buckets.
+
+Layers I/II: the host fixed-width walk (``layer12.analyze_l1``/
+``analyze_l2``) emits dense codes, classes and scalefactor indices; one
+``layer12.l12_synthesize`` call per channel count requantizes them and
+runs the synthesis on the device.
 """
 
 from __future__ import annotations
@@ -15,16 +20,17 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from ...core import errors as E
 from ...core.batch import AudioBatch
+from ...utils.trace import TRACE
+from . import layer12 as L12
 from . import native
 from .dsp import compact_lane_wire, mp3_decode_fused
 
 if TYPE_CHECKING:  # pragma: no cover
     from ...io.assets import Asset
-
-LAYER12_TODO = ("MPEG Layer I/II decode is not ported yet "
-                "(ROADMAP queue 1, slice 2: Layers I/II)")
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -231,24 +237,99 @@ def _decode_group_fused(
     return pieces
 
 
+def pack_layer12(analyses: list, device) -> tuple:
+    """One channel count's ``layer12.L12Analysis`` list → the (codes, cls,
+    sf_idx) tensors of ``l12_synthesize`` on ``device``, frames padded to
+    a ``_bucket`` (silent class 0, scalefactor index 63)."""
+    a0 = analyses[0]
+    B, ch, steps = len(analyses), a0.channels, a0.steps_per_frame
+    F = _bucket(max(a.n_frames for a in analyses))
+    codes = np.zeros((B, F, ch, 32, steps), np.int32)
+    cls = np.zeros((B, F, ch, 32), np.int8)
+    sf_idx = np.full((B, F, ch, 32, 3), 63, np.int8)
+    for b, a in enumerate(analyses):
+        codes[b, : a.n_frames] = a.codes
+        cls[b, : a.n_frames] = a.cls
+        sf_idx[b, : a.n_frames] = a.sf_idx
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (codes, cls, sf_idx))
+
+
+def _decode_group_layer12(
+    assets: "list[Asset]", layer: int, device,
+) -> list[tuple[list[int], AudioBatch]]:
+    """Layer I/II path: host fixed-width parse → requantize + the shared
+    polyphase synthesis on ``device`` (layer12.py), one call per channel
+    count.  A file's ``DecodeError`` gives its code; any other exception
+    gives ``ERR_INVALID``."""
+    analyze = L12.analyze_l1 if layer == 1 else L12.analyze_l2
+    analyses: list = []
+    failures: list = []
+    with TRACE.stage("l12/analyze"), record_function("l12.analyze"):
+        for i, a in enumerate(assets):
+            try:
+                analyses.append((i, analyze(a.data)))
+            except E.DecodeError as e:
+                failures.append((i, e.code))
+            except Exception:
+                failures.append((i, E.ERR_INVALID))
+
+    pieces: list[tuple[list[int], AudioBatch]] = []
+    if failures:
+        idxs = [i for i, _ in failures]
+        pieces.append(
+            (idxs, _error_batch([assets[i].name for i in idxs],
+                                [c for _, c in failures], device))
+        )
+
+    groups: dict[int, list] = {}
+    for i, an in analyses:
+        groups.setdefault(an.channels, []).append((i, an))
+    for ch, items in groups.items():
+        idxs = [i for i, _ in items]
+        ans = [a for _, a in items]
+        B = len(ans)
+        steps = ans[0].steps_per_frame
+        pcm = L12.l12_synthesize(*pack_layer12(ans, device), channels=ch,
+                                 steps=steps)
+
+        def meta(vals):
+            return torch.as_tensor(np.asarray(vals, np.int32), device=device)
+
+        batch = AudioBatch(
+            data=pcm, channels=ch,
+            sample_rate=meta([a.sample_rate for a in ans]),
+            num_channels=meta([a.channels for a in ans]),
+            bits_per_sample=meta(np.full((B,), 16)),
+            valid_frames=meta([a.n_frames * steps * 32 for a in ans]),
+            err=meta(np.zeros((B,))),
+            names=tuple(assets[i].name for i in idxs),
+            formats=(f"mp{layer}",) * B,
+        )
+        pieces.append((idxs, batch))
+    return pieces
+
+
 def decode_group(assets: "list[Asset]", *, device) -> list[tuple[list[int], AudioBatch]]:
     """Decode a group of MPEG-audio assets → (local_indices, AudioBatch)
     pieces on ``device``.
 
-    Every blob is frame-walked exactly once: an ``Mp3Session`` walks at
-    open time and serves layer routing, the grouping probes and lane
-    emission from the stored frame tables.  Layer III (or undetected:
-    the fused path reports its errors) decodes; Layers I/II raise
-    ``NotImplementedError``."""
+    Every blob is frame-walked once by an ``Mp3Session``, which routes by
+    the layer of the first valid frame and serves the Layer III grouping
+    probes and lane emission from its stored frame tables.  Layers I/II
+    take the fixed-width subband path; Layer III (or undetected: the
+    fused path reports its errors) the fused on-device-Huffman path."""
     with native.Mp3Session([a.data for a in assets]) as sess:
         by_layer: dict[int, list[int]] = {}
         for i, layer in enumerate(sess.layers):
             by_layer.setdefault(layer, []).append(i)
-        if any(layer in (1, 2) for layer in by_layer):
-            raise NotImplementedError(LAYER12_TODO)
         pieces: list[tuple[list[int], AudioBatch]] = []
-        for idxs in by_layer.values():
+        for layer, idxs in by_layer.items():
             sub = [assets[i] for i in idxs]
-            for local, batch in _decode_group_fused(sub, sess, idxs, device):
+            if layer in (1, 2):
+                sub_pieces = _decode_group_layer12(sub, layer, device)
+            else:
+                sub_pieces = _decode_group_fused(sub, sess, idxs, device)
+            for local, batch in sub_pieces:
                 pieces.append(([idxs[j] for j in local], batch))
         return pieces

@@ -8,9 +8,7 @@
   4. reassemble a single ``AudioBatch`` in the original asset order.
 
 Per-file failures never raise mid-batch: they surface as per-file error
-codes (``AudioBatch.err``).  A file of a family the JAX package decodes
-but this port does not yet raises ``NotImplementedError``; a truly
-unknown extension gets ``ERR_UNSUPPORTED``.
+codes (``AudioBatch.err``); an unknown extension gets ``ERR_UNSUPPORTED``.
 
 The device is explicit: every entry point takes ``device=`` and nothing
 falls back to the CPU; ``device="cuda"`` without a card raises.
@@ -22,21 +20,29 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core import errors as E
 from ..core.batch import AudioBatch, concat_batches
 from ..io.assets import Asset, load_assets, pack_bytes, scan_assets
-from ..ops.unpack import unpack_pcm
+from ..ops.unpack import (unpack_ima4, unpack_ima_adpcm, unpack_ms_adpcm,
+                          unpack_pcm)
 from ..utils.trace import TRACE
+from . import aiff as aiff_codec
+from . import au as au_codec
+from . import caf as caf_codec
 from . import wav as wav_codec
 
-ADPCM_TODO = ("WAV ADPCM decode (IMA, MS) is not ported yet "
-              "(ROADMAP queue 1, slice 2: ADPCM unpackers)")
-
 # family name → (vectorized header parser, unpack-config fn, big_endian)
+# for the PCM container families
 _PARSERS = {
     "wav": (wav_codec.parse_meta_batch, wav_codec.unpack_args, False),
+    "aiff": (aiff_codec.parse_meta_batch, aiff_codec.unpack_args, True),
+    "au": (au_codec.parse_meta_batch, au_codec.unpack_args, True),
+    "caf": (caf_codec.parse_meta_batch, caf_codec.unpack_args, True),
 }
+
+_ADPCM = {"ima": unpack_ima_adpcm, "ms": unpack_ms_adpcm, "ima4": unpack_ima4}
 
 
 def resolve_device(device) -> torch.device:
@@ -75,16 +81,18 @@ def _error_batch(names, formats, codes, device) -> AudioBatch:
 def decode_pcm_family(
     family: str, assets: list[Asset], *, device
 ) -> list[tuple[list[int], AudioBatch]]:
-    """Decode one WAV family batch.
+    """Decode one WAV/AIFF/AU/CAF family batch.
 
     Returns ``(family_local_indices, group_batch)`` pieces: one piece per
-    static unpack config (bits/channels/float/companding) plus one piece
-    for files whose header parse failed."""
+    static unpack config (bits/channels/float/endianness/companding/
+    ADPCM kind and block size) plus one piece for files whose header
+    parse failed."""
     parse_meta, unpack_args_fn, big_endian = _PARSERS[family]
     bufs_np, lens_np = pack_bytes([a.data for a in assets])
     bufs = torch.as_tensor(bufs_np, device=device)
-    meta = parse_meta(bufs, torch.as_tensor(lens_np, device=device))
-    meta_host = {k: v.cpu().numpy() for k, v in meta.items()}
+    with TRACE.stage("pcm/parse"), record_function("pcm.parse"):
+        meta = parse_meta(bufs, torch.as_tensor(lens_np, device=device))
+        meta_host = {k: v.cpu().numpy() for k, v in meta.items()}
 
     groups: dict[tuple, list[int]] = {}
     failed: list[int] = []
@@ -94,11 +102,10 @@ def decode_pcm_family(
             continue
         row = {k: v[i] for k, v in meta_host.items()}
         cfg = unpack_args_fn(row)
-        if cfg.get("adpcm") is not None:
-            raise NotImplementedError(f"{assets[i].path}: {ADPCM_TODO}")
         key = (cfg["bits"], int(row["channels"]), cfg["is_float"],
                cfg["unsigned8"], cfg.get("companded"),
-               cfg.get("big_endian", big_endian))
+               cfg.get("big_endian", big_endian),
+               cfg.get("adpcm"), cfg.get("block_align"))
         groups.setdefault(key, []).append(i)
 
     pieces: list[tuple[list[int], AudioBatch]] = []
@@ -115,22 +122,34 @@ def decode_pcm_family(
             )
         )
 
-    for (bits, channels, is_float, unsigned8, companded, be), idxs in groups.items():
+    for (bits, channels, is_float, unsigned8, companded, be, adpcm,
+         block_align), idxs in groups.items():
         sel_np = np.asarray(idxs, np.int64)
         sel = torch.as_tensor(sel_np, device=device)
         max_frames = _bucket_frames(int(meta_host["n_frames"][sel_np].max()))
-        pcm = unpack_pcm(
-            bufs[sel],
-            meta["data_off"][sel],
-            meta["n_frames"][sel],
-            bits=bits,
-            channels=channels,
-            big_endian=be,
-            unsigned8=unsigned8,
-            is_float=is_float,
-            companded=companded,
-            max_frames=max_frames,
-        )
+        if adpcm is not None:
+            kw = {} if adpcm == "ima4" else dict(block_align=block_align)
+            pcm = _ADPCM[adpcm](
+                bufs[sel],
+                meta["data_off"][sel],
+                meta["n_frames"][sel],
+                channels=channels,
+                max_frames=max_frames,
+                **kw,
+            )
+        else:
+            pcm = unpack_pcm(
+                bufs[sel],
+                meta["data_off"][sel],
+                meta["n_frames"][sel],
+                bits=bits,
+                channels=channels,
+                big_endian=be,
+                unsigned8=unsigned8,
+                is_float=is_float,
+                companded=companded,
+                max_frames=max_frames,
+            )
         batch = AudioBatch(
             data=pcm, channels=channels,
             sample_rate=meta["sample_rate"][sel],

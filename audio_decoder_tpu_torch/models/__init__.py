@@ -6,17 +6,21 @@ native front-end and a device decode program, bound here as a
 every asset through this table (extension → model → decode_group).
 
 Families:
-  wav — RIFF/WAVE: vectorized chunk parse + fused PCM unpack (8/16/24/32
-        bit + IEEE float + A/µ-law), little-endian (codecs/wav.py).
-  mp3 — MPEG Layer III: host frame/side-info walk (C++ mp3fe) + on-device
-        entropy decode and synthesis (codecs/mpeg/).
+  wav  — RIFF/WAVE: vectorized chunk parse + fused PCM unpack (8/16/24/32
+         bit + IEEE float + A/µ-law), little-endian, and the IMA and MS
+         ADPCM unpackers (codecs/wav.py, ops/unpack.py).
+  aiff — FORM/AIFF: big-endian PCM + IEEE-80 rates, the AIFF-C codes
+         sowt, fl32/fl64, ulaw/alaw and ima4 (codecs/aiff.py).
+  au   — Sun AU / NeXT SND: fixed big-endian header, G.711 + PCM + float
+         encodings (codecs/au.py).
+  caf  — Apple CAF: lpcm, ulaw/alaw and ima4 (codecs/caf.py).
+  mp3  — MPEG-1/2/2.5 Layers I/II/III, routed by layer: the host
+         frame walk (C++ mp3fe) + on-device entropy decode and synthesis
+         for Layer III; the host fixed-width walk + on-device
+         requantisation and synthesis for Layers I/II (codecs/mpeg/).
   flac — FLAC lossless: host structural walk (C++ flacfe) + on-device rice
-        scan, LPC/FIXED reconstruction, stereo decorrelation and window-add
-        assembly (codecs/flac/).
-
-The extensions of families the JAX package decodes but this port does not
-yet (``NOT_PORTED``) raise ``NotImplementedError`` instead of decoding as
-unknown files.
+         scan, LPC/FIXED reconstruction, stereo decorrelation and
+         window-add assembly (codecs/flac/).
 """
 
 from __future__ import annotations
@@ -49,8 +53,23 @@ MODELS = {
         decode_group=functools.partial(_registry.decode_pcm_family, "wav"),
         bit_exact=True,
     ),
+    "aiff": CodecModel(
+        name="aiff", extensions=("aif", "aiff", "aifc"),
+        decode_group=functools.partial(_registry.decode_pcm_family, "aiff"),
+        bit_exact=True,
+    ),
+    "au": CodecModel(
+        name="au", extensions=("au", "snd"),
+        decode_group=functools.partial(_registry.decode_pcm_family, "au"),
+        bit_exact=True,
+    ),
+    "caf": CodecModel(
+        name="caf", extensions=("caf",),
+        decode_group=functools.partial(_registry.decode_pcm_family, "caf"),
+        bit_exact=True,
+    ),
     "mp3": CodecModel(
-        name="mp3", extensions=("mp3",),
+        name="mp3", extensions=("mp3", "mp2", "mp1"),
         decode_group=_mpeg.decode_group,
         bit_exact=False,  # ISO spec tolerance
     ),
@@ -61,26 +80,13 @@ MODELS = {
     ),
 }
 
-#: extension → what is missing (decoded by the JAX package, not yet here)
-NOT_PORTED = {
-    "aif": "AIFF", "aiff": "AIFF", "aifc": "AIFF-C", "au": "Sun AU",
-    "snd": "Sun AU", "caf": "CAF", "mp1": "MPEG Layer I",
-    "mp2": "MPEG Layer II",
-}
-
-
 def for_extension(ext: str) -> CodecModel | None:
-    """The model decoding ``ext``; None for an unknown extension.  Raises
-    ``NotImplementedError`` for an extension not ported yet."""
+    """The model decoding ``ext``; None for an unknown extension."""
     ext = ext.lower()
     for m in MODELS.values():
         if ext in m.extensions:
             return m
-    if ext in NOT_PORTED:
-        raise NotImplementedError(
-            f".{ext} ({NOT_PORTED[ext]}) decode is not ported yet "
-            "(ROADMAP queue 1)")
     return None
 
 
-__all__ = ["CodecModel", "MODELS", "NOT_PORTED", "for_extension"]
+__all__ = ["CodecModel", "MODELS", "for_extension"]

@@ -1,4 +1,5 @@
-"""Fused WAV decode step: header parse + sample unpack in one call.
+"""Fused PCM decode step: header parse + sample unpack in one call, for
+WAV and AIFF.
 
 The single-device half of the JAX package's ``parallel/decode.py``; the
 mesh-sharded steps are not ported yet.
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..codecs import aiff as aiff_codec
 from ..codecs import wav as wav_codec
 from ..ops.unpack import unpack_pcm
 
@@ -21,19 +23,27 @@ def decode_pcm_step(
     max_frames: int,
     family: str = "wav",
 ):
-    """Parse + unpack a uniform-config batch of WAV files.
+    """Parse + unpack a uniform-config batch of WAV (``family="wav"``) or
+    AIFF (``"aiff"``) files.
 
     Returns (pcm ``[B, max_frames*channels]`` flat interleaved, meta dict
     of int32 ``[B]`` tensors).  Files whose actual geometry disagrees with
     the static config get err=ERR_INVALID rather than mis-decoding."""
-    if family != "wav":
-        raise NotImplementedError(
-            f"decode_pcm_step family {family!r}: only 'wav' is ported "
-            "(ROADMAP queue 1, slice 2: AIFF, AU, CAF)")
-    meta = wav_codec.parse_meta_batch(bufs, lens)
-    # only plain integer PCM matches this step's static unpack config
-    geom_ok = ((meta["fmt_code"] == wav_codec.FORMAT_PCM)
-               & (meta["bits"] == bits) & (meta["channels"] == channels))
+    if family == "wav":
+        meta = wav_codec.parse_meta_batch(bufs, lens)
+        big_endian, unsigned8 = False, bits == 8
+        # only plain integer PCM matches this step's static unpack config
+        fmt_plain = meta["fmt_code"] == wav_codec.FORMAT_PCM
+    elif family == "aiff":
+        meta = aiff_codec.parse_meta_batch(bufs, lens)
+        big_endian, unsigned8 = True, False
+        # fmt_code 0 is big-endian integer PCM; sowt, floats, G.711 and
+        # ima4 need other unpackers
+        fmt_plain = meta["fmt_code"] == 0
+    else:
+        raise ValueError(f"decode_pcm_step: family must be 'wav' or 'aiff', "
+                         f"got {family!r}")
+    geom_ok = fmt_plain & (meta["bits"] == bits) & (meta["channels"] == channels)
     err = torch.where((meta["err"] == 0) & ~geom_ok,
                       torch.full_like(meta["err"], 3), meta["err"])
     n_frames = torch.where(err == 0, meta["n_frames"],
@@ -44,8 +54,8 @@ def decode_pcm_step(
         n_frames,
         bits=bits,
         channels=channels,
-        big_endian=False,
-        unsigned8=bits == 8,
+        big_endian=big_endian,
+        unsigned8=unsigned8,
         is_float=False,
         max_frames=max_frames,
     )

@@ -41,11 +41,28 @@ Phases:
      launched once per chunk;
   7. rates: after one warm run, 3 timed runs each of the WAV + MP3 folder,
      16 FLAC files, and 16 WAV + 16 MP3 + 16 FLAC (decoded audio-seconds
-     per second; informational).
+     per second; informational);
+  8. the other families: 16 copies each of 10 s 44.1 kHz stereo AIFF
+     24-bit, AIFF-C sowt 16-bit, AU µ-law, CAF f32 LE, WAV IMA ADPCM and
+     WAV MS ADPCM (block_align 2048) and AIFF-C ima4, 8 copies each of a
+     10 s Layer I (448 kbps) and Layer II (192 kbps) stream, a truncated
+     AIFF, a garbage .au and a .mp2 of random bytes (all written from the
+     seed by the numpy writers in tests/), decoded with
+     ``decode_dir(folder, device="cuda")``; checks names, formats, error
+     codes and metadata against the port's CPU path on the same bytes,
+     every integer family's PCM bit for bit, Layer I/II within
+     amplitude-scaled RMS 5e-7, the ADPCM PCM against tests/ima_ref.py
+     and ms_ref.py's decoders, and that the synthesis kernel (K2)
+     launched; holds K2 against its twin at the Layer I/II groups' shapes
+     (and at T = 2048·12 and 512·36) and times it; prints each family's
+     audio-seconds per second with its host milliseconds per stage.
 
 With ``--profile`` it then profiles one decode of the 16 FLAC files with
 torch.profiler and prints each FLAC stage's host and device time (the
-full table goes to chiprun_out/flac_profile.txt).
+full table goes to chiprun_out/flac_profile.txt), then one decode of the
+families folder (stage spans ``pcm.*``, ``adpcm.*``, ``l12.*``; table in
+chiprun_out/families_profile.txt) and each ADPCM kind's scan alone with
+its kernel launches.
 
 Every phase is fatal.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -78,6 +95,8 @@ MUSIC_FLAC = os.path.join(FIXTURES, "music_44k1_s16.flac")
 MONO24_FLAC = os.path.join(FIXTURES, "mono_48k_s24.flac")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 N_WAV = N_MP3 = N_FLAC = 16
+N_FAM, N_L12 = 16, 8  # copies per PCM/ADPCM family, per Layer I/II stream
+ADPCM_BA = 2048
 SECONDS = 10.0
 RATE = 44100
 RMS_TOL = 5e-7  # float32 round-off bar of the MP3 tests, amplitude-scaled
@@ -149,6 +168,14 @@ def device_kernels(fn, reps: int) -> dict:
         if us > 0:
             out[e.key] = out.get(e.key, 0.0) + us / reps / 1e3
     return out
+
+
+def dev_us(e, self_only: bool = False) -> float:
+    """A profiler row's device microseconds (total or self), under either
+    of torch's attribute names."""
+    name = "self_device_time_total" if self_only else "device_time_total"
+    legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
+    return getattr(e, name, None) or getattr(e, legacy, 0.0)
 
 
 def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
@@ -765,11 +792,6 @@ def phase_profile(flac_folder: str, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e, self_only=False):
-        name = "self_device_time_total" if self_only else "device_time_total"
-        legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
-        return getattr(e, name, None) or getattr(e, legacy, 0.0)
-
     rows = prof.key_averages()
     busy = sum(dev_us(e, True) for e in rows if not e.key.startswith("flac."))
     log(f"profile: wall {wall * 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
@@ -808,29 +830,327 @@ def phase_profile(flac_folder: str, card: str) -> None:
     log(f"profile table: {path}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: AIFF, AU, CAF, the ADPCM unpackers and MPEG Layers I/II
+# ---------------------------------------------------------------------------
+
+#: family kind → (extension, copies, format tag the decode reports)
+KINDS = {
+    "aiff24": ("aif", N_FAM, "aiff"), "sowt16": ("aifc", N_FAM, "aiff"),
+    "ulaw": ("au", N_FAM, "au"), "caf_f32": ("caf", N_FAM, "caf"),
+    "ima": ("wav", N_FAM, "wav"), "ms": ("wav", N_FAM, "wav"),
+    "ima4": ("aifc", N_FAM, "aiff"), "layer1": ("mp1", N_L12, "mp1"),
+    "layer2": ("mp2", N_L12, "mp2"),
+}
+#: TRACE stages of the families' decode, host milliseconds each
+STAGES = ("pcm/parse", "adpcm/scan", "l12/analyze", "l12/requantize",
+          "l12/synthesis")
+
+
+def family_sources(seed: int) -> dict:
+    """One 10 s 44.1 kHz stereo file per kind, from the seed: {kind: (bytes,
+    reference)}, the reference being the int PCM (aiff24, sowt16), the
+    numpy reference decoder's int16 PCM (ADPCM) or None."""
+    from tests import ima_ref as IR
+    from tests import ms_ref as MR
+    from tests import seeded_writers as SW
+    from tests.synth import make_aiff, make_au, make_caf
+
+    rng = np.random.default_rng(seed + 2)
+    frames = int(SECONDS * RATE)
+    z2 = np.zeros((0, 2), np.int64)
+
+    def ints(bits):
+        return rng.integers(-(1 << (bits - 1)), 1 << (bits - 1),
+                            size=(frames, 2))
+
+    t = np.arange(frames)
+    tone = (9000 * np.sin(2 * np.pi * 440 * t / RATE)[:, None]
+            * np.array([1.0, 0.7]) + rng.normal(0, 1500, (frames, 2)))
+    tone = np.clip(tone, -32768, 32767).astype(np.int16)
+    pcm24, pcm16 = ints(24), ints(16)
+    ima = IR.encode(tone, ADPCM_BA)
+    ms = MR.encode(tone, ADPCM_BA)
+    ima4 = IR.encode_ima4(tone)
+    return {
+        "aiff24": (make_aiff(pcm24, RATE, 24), pcm24 / 2.0 ** 23),
+        "sowt16": (make_aiff(pcm16, RATE, 16, compression=b"sowt"),
+                   pcm16 / 2.0 ** 15),
+        "ulaw": (make_au(z2, RATE, 1, data_override=rng.integers(
+            0, 256, size=2 * frames).astype(np.uint8).tobytes()), None),
+        "caf_f32": (make_caf(np.clip(rng.standard_normal((frames, 2)) * 0.3,
+                                     -1, 1).astype(np.float32), RATE,
+                             bits=32, little=True, float_=True), None),
+        "ima": (SW.ima_wav(ima, 2, ADPCM_BA), IR.decode(ima, 2, ADPCM_BA)),
+        "ms": (SW.ms_wav(ms, 2, ADPCM_BA), MR.decode(ms, 2, ADPCM_BA)),
+        "ima4": (make_aiff(z2, RATE, 16, compression=b"ima4",
+                           data_override=ima4, frames_override=frames),
+                 IR.decode_ima4(ima4, 2, n_frames=frames)),
+        "layer1": (SW.layer1_frames(rng, -(-frames // 384), 2), None),
+        "layer2": (SW.layer2_frames(rng, -(-frames // 1152), 2, sr=RATE,
+                                    kbps=192), None),
+    }
+
+
+def write_families_folder(folder: str, seed: int) -> dict:
+    """The families folder; returns family_sources(seed)."""
+    t0 = time.perf_counter()
+    src = family_sources(seed)
+    rng = np.random.default_rng(seed + 3)
+    for kind, (ext, copies, _fmt) in KINDS.items():
+        for i in range(copies):
+            with open(os.path.join(folder, f"{kind}_{i:02d}.{ext}"), "wb") as f:
+                f.write(src[kind][0])
+    bad = {"truncated.aif": src["aiff24"][0][: len(src["aiff24"][0]) // 2],
+           "garbage.au": rng.integers(0, 256, 4096).astype(np.uint8).tobytes(),
+           "random.mp2": rng.integers(0, 256, 8192).astype(np.uint8).tobytes()}
+    for name, blob in bad.items():
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(blob)
+    log(f"families folder written in {time.perf_counter() - t0:.3f} s "
+        f"(sources, copies and the reference ADPCM decodes)")
+    return src
+
+
+def _kind(name: str) -> str:
+    return name.rsplit("_", 1)[0]
+
+
+def phase_families(folder: str, src: dict, dev) -> int:
+    """Decode the families folder on the card and on the CPU and hold the
+    two (and the references) against each other; returns K2's launches."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.core import errors as E
+    from audio_decoder_tpu_torch.ops import synth_kernel as SK
+
+    SK.launches = 0
+    t0 = time.perf_counter()
+    gpu, names = adt.decode_dir(folder, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = SK.launches
+    log(f"families path launches: {{'mp3_polyphase_synthesis': {k2}}} "
+        f"({wall:.3f} s on the card, first run)")
+    if k2 <= 0:
+        fail("the Layer I/II path did not launch the synthesis kernel (K2)")
+    if gpu.data.device.type != dev.type or not torch.isfinite(gpu.data).all():
+        fail(f"families batch is not finite PCM on {dev}")
+    cpu, cnames = adt.decode_dir(folder, device="cpu")
+    if cnames != names or cpu.names != gpu.names or cpu.formats != gpu.formats:
+        fail("families: names or formats differ between the card and the CPU")
+    for k in ("sample_rate", "num_channels", "bits_per_sample",
+              "valid_frames", "err"):
+        if not torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)):
+            fail(f"families: {k} differs between the card and the CPU")
+
+    # random.mp2 may hold a chance frame sync (then a short Layer I/II
+    # stream decodes): it is held to the CPU path's code only
+    err = dict(zip(gpu.names, gpu.err.cpu().tolist()))
+    want = {"truncated": E.ERR_EOF, "garbage": E.ERR_UNSUPPORTED}
+    for name, code in err.items():
+        if name in want and code != want[name]:
+            fail(f"{name} has error code {code}, want {want[name]}")
+        if name not in want and name != "random" and code != 0:
+            fail(f"{name} has error code {code}")
+
+    worst = 0.0
+    counts: dict = {}
+    for name in gpu.names:
+        kind = _kind(name)
+        if kind not in KINDS:
+            continue
+        i = names[name]
+        got, ref = gpu.file(i), cpu.file(i)
+        if got.format != KINDS[kind][2] or got.pcm.shape != ref.pcm.shape:
+            fail(f"{name}: format {got.format}, shape {got.pcm.shape} vs the "
+                 f"CPU path's {ref.pcm.shape}")
+        if kind.startswith("layer"):
+            ok, rms, bar = scaled_rms_ok(ref.pcm, got.pcm)
+            worst = max(worst, rms / bar)
+            if not ok:
+                fail(f"{name} RMS {rms:.3e} vs the CPU path exceeds {bar:.3e}")
+        elif not np.array_equal(got.pcm, ref.pcm):
+            fail(f"{name} PCM on the card differs from the CPU path")
+        expect = src[kind][1]
+        if expect is not None and counts.get(kind, 0) == 0:
+            if kind in ("ima", "ms", "ima4"):
+                ints = np.round(got.pcm.astype(np.float64) * 32768.0)
+                same = ints.shape == expect.shape and np.array_equal(ints, expect)
+            else:
+                same = np.array_equal(got.pcm, expect.astype(np.float32))
+            if not same:
+                fail(f"{name} PCM differs from its reference")
+        counts[kind] = counts.get(kind, 0) + 1
+    for kind, (_ext, copies, _fmt) in KINDS.items():
+        if counts.get(kind) != copies:
+            fail(f"families: {counts.get(kind)} {kind} files, want {copies}")
+    log(f"families: {sum(counts.values())} files on the card equal the CPU "
+        f"path (integer families bit for bit; Layer I/II worst rms/bar "
+        f"{worst:.3f}); ADPCM equal to the reference decoders, AIFF to the "
+        f"source integers; error codes { {n: err[n] for n in ('truncated', 'garbage', 'random')} }")
+    return k2
+
+
+def phase_families_k2(dev, src: dict) -> list[dict]:
+    """K2 against its plain twin at the Layer I/II groups' shapes (the
+    folder's 8-file groups) and at T = 2048·12 and 512·36 (BC = 16), with
+    CUDA-event times and the bytes/operations bound."""
+    from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
+    from audio_decoder_tpu_torch.codecs.mpeg import dsp
+    from audio_decoder_tpu_torch.codecs.mpeg import layer12 as L12
+    from audio_decoder_tpu_torch.ops import synth_kernel as SK
+
+    c = dsp._consts(dev)
+    cases = []
+    for kind, analyze in (("layer1", L12.analyze_l1),
+                          ("layer2", L12.analyze_l2)):
+        an = analyze(src[kind][0])
+        TS = L12.l12_subband_samples(*D.pack_layer12([an] * N_L12, dev))
+        B, C, T, _ = TS.shape
+        cases.append((f"{kind} group", TS.reshape(B * C, T, 32).contiguous()))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for steps, frames in ((12, 2048), (36, 512)):
+        cases.append((f"T = {frames}·{steps}", torch.randn(
+            (16, frames * steps, 32), device=dev, generator=gen)))
+    out = []
+    for label, ts in cases:
+        got = SK.polyphase_synthesis_blocks(ts, c["synth_n"], c["g2"])
+        ref = SK.synthesis_plain(ts, c["synth_n"], c["g2"])
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, atol=1e-4, rtol=1e-5):
+            fail(f"K2 at the {label} shape {tuple(ts.shape)} differs from "
+                 f"its plain form: max abs err {err}")
+        ms = cuda_ms(lambda: SK.polyphase_synthesis_blocks(ts, c["synth_n"],
+                                                           c["g2"]), 50)
+        plain_ms = cuda_ms(lambda: SK.synthesis_plain(ts, c["synth_n"],
+                                                      c["g2"]), 10)
+        BC, T, _ = ts.shape
+        flops = 2.0 * BC * T * (64 * 32 + 16 * 32)
+        b_ms, by = bound(nbytes(ts, c["synth_n"], c["g2"], got), flops)
+        log(f"K2 at the {label}: TS {tuple(ts.shape)}, max abs err {err:.3e} "
+            f"(atol 1e-4, rtol 1e-5); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        out.append(dict(shape=list(ts.shape), max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=by))
+    return out
+
+
+def phase_families_rate(folder: str, card: str, dev) -> None:
+    """Each kind's files decoded alone on the card (after the checked run),
+    audio-seconds per second with the host milliseconds of each stage."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.io.assets import load_assets, scan_assets
+    from audio_decoder_tpu_torch.utils.trace import TRACE
+
+    assets = load_assets(scan_assets(folder))
+    for kind in KINDS:
+        sub = [a for a in assets if _kind(a.name) == kind]
+        TRACE.reset()
+        t0 = time.perf_counter()
+        b = adt.decode_assets(sub, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        audio_s = float(b.audio_seconds())
+        stages = {k: round(TRACE.stats[k].seconds * 1e3, 3)
+                  for k in STAGES if k in TRACE.stats}
+        log(f"rate: family {kind} ({len(sub)} files, {audio_s:.3f} audio-s): "
+            f"wall {wall * 1e3:.3f} ms, {audio_s / wall:.3f} audio-s/s; host "
+            f"ms per stage {stages}  [{card}]")
+
+
+def phase_families_profile(folder: str, card: str, dev) -> None:
+    """torch.profiler over one decode of the families folder (host and
+    device ms per stage span, the device's idle share), then each ADPCM
+    kind's files alone: the scan's host ms and its kernel launches."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.io.assets import load_assets, scan_assets
+    from torch.profiler import ProfilerActivity, profile
+
+    assets = load_assets(scan_assets(folder))
+    prefixes = ("pcm.", "adpcm.", "l12.")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        adt.decode_assets(assets, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    busy = sum(dev_us(e, True) for e in rows if not e.key.startswith(prefixes))
+    log(f"profile families: wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms (idle share {1 - busy / 1e3 / (wall * 1e3):.3f})"
+        f"  [{card}]")
+    # each span has a host entry (host time; its kernels' device time) and
+    # a device-side entry (first to last kernel on the device's timeline)
+    for e in sorted((e for e in rows if e.key.startswith(prefixes)),
+                    key=lambda e: (e.key, -e.cpu_time_total)):
+        if e.cpu_time_total > 0:
+            log(f"profile span {e.key}: calls {e.count}, host "
+                f"{e.cpu_time_total / 1e3:.3f} ms, its kernels "
+                f"{dev_us(e) / 1e3:.3f} ms")
+        else:
+            log(f"profile span {e.key}: device timeline "
+                f"{dev_us(e) / 1e3:.3f} ms")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "families_profile.txt")
+    with open(path, "w") as f:
+        f.write(f"{card}\n")
+        f.write(rows.table(sort_by="self_device_time_total", row_limit=60))
+    log(f"profile table: {path}")
+
+    for kind in ("ima", "ms", "ima4"):
+        sub = [a for a in assets if _kind(a.name) == kind]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as kprof:
+            adt.decode_assets(sub, device=dev)
+            torch.cuda.synchronize()
+        events = kprof.events()
+        spans = [e.time_range for e in events if e.name == "adpcm.scan"]
+        launches = sum(
+            1 for e in events if e.name.startswith("cudaLaunchKernel")
+            and any(s.start <= e.time_range.start <= s.end for s in spans))
+        scan = [e for e in kprof.key_averages()
+                if e.key == "adpcm.scan" and e.cpu_time_total > 0]
+        if not scan or launches == 0:
+            fail(f"the ADPCM scan of {kind} left no span or launched nothing")
+        log(f"profile ADPCM scan {kind} ({len(sub)} files): host "
+            f"{scan[0].cpu_time_total / 1e3:.3f} ms, its kernels "
+            f"{dev_us(scan[0]) / 1e3:.3f} ms, {launches} kernel launches  "
+            f"[{card}]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--profile", action="store_true",
                     help="profile one FLAC decode after the other phases")
     args = ap.parse_args()
+    sys.path.insert(0, ROOT)  # the numpy writers of tests/
 
     card = phase_environment()
     phase_build()
     dev = torch.device("cuda")
     kernels = phase_kernels(dev) + phase_flac_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="adt_smoke_") as folder, \
-            tempfile.TemporaryDirectory(prefix="adt_smoke_flac_") as flac_folder:
+            tempfile.TemporaryDirectory(prefix="adt_smoke_flac_") as flac_folder, \
+            tempfile.TemporaryDirectory(prefix="adt_smoke_fam_") as fam_folder:
         wavs = write_folder(folder, args.seed)
         launches, _ = phase_main_path(folder, wavs, dev)
         good = write_flac_folder(flac_folder, args.seed)
         launches.update(phase_flac_path(flac_folder, good, dev))
         phase_flac_chunked(dev)
         phase_rate(folder, flac_folder, card)
+        src = write_families_folder(fam_folder, args.seed)
+        k2_families = phase_families(fam_folder, src, dev)
+        k2_shapes = phase_families_k2(dev, src)
+        phase_families_rate(fam_folder, card, dev)
         if args.profile:
             phase_profile(flac_folder, card)
+            phase_families_profile(fam_folder, card, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "mp3_polyphase_synthesis":
+            # the Layer I/II path: its launches per decode_dir of the
+            # families folder, and K2 at its shapes
+            k["layer12"] = dict(launches=k2_families, shapes=k2_shapes)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

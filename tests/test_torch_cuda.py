@@ -316,6 +316,20 @@ def test_synthesis_kernel_matches_plain(cuda_device, T):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("frames,steps", [(2048, 12), (512, 36)],
+                         ids=["layer1", "layer2"])
+def test_synthesis_kernel_at_the_layer12_shapes(cuda_device, frames, steps):
+    """K2 at the Layer I/II path's long rows (T = frames·steps, 16 rows)."""
+    rng = np.random.default_rng(frames + steps)
+    c = dsp._consts(cuda_device)
+    ts = torch.as_tensor(
+        rng.standard_normal((16, frames * steps, 32)).astype(np.float32),
+        device=cuda_device)
+    got = SK.polyphase_synthesis_blocks(ts, c["synth_n"], c["g2"])
+    ref = SK.synthesis_plain(ts, c["synth_n"], c["g2"])
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
 def test_synthesis_kernel_on_an_unaligned_view(cuda_device):
     """TS one float into its storage (not 16-byte aligned): the wrapper
     copies it, the kernel reads 16-byte words."""
@@ -364,6 +378,52 @@ def test_decode_paths_cuda_matches_cpu(cuda_device):
         rms = float(np.sqrt(((ref - got) ** 2).mean()))
         bar = 5e-7 * max(1.0, float(np.sqrt((ref ** 2).mean())) / 0.2)
         assert rms < bar, (i, rms, bar)
+
+
+def test_other_families_cuda_match_cpu(cuda_device, tmp_path):
+    """AIFF, AIFF-C ima4, AU, CAF, WAV IMA and MS ADPCM bit for bit and
+    Layers I/II within the RMS bar, the card against the CPU path."""
+    from . import ima_ref as IR
+    from . import ms_ref as MR
+    from .seeded_writers import (ima_wav, layer1_frames, layer2_frames,
+                                 ms_wav)
+    from .synth import make_aiff, make_au, make_caf
+
+    rng = np.random.default_rng(0xFA)
+    pcm = rng.integers(-30000, 30000, size=(3000, 2)).astype(np.int16)
+    files = {
+        "a.aif": make_aiff(pcm.astype(np.int64), 44100, 16),
+        "b.aifc": make_aiff(np.zeros((0, 2), np.int16), 44100, 16,
+                            compression=b"ima4",
+                            data_override=IR.encode_ima4(pcm),
+                            frames_override=3000),
+        "c.au": make_au(pcm.astype(np.int64), 22050, 3),
+        "d.caf": make_caf(pcm.astype(np.int64), 48000, bits=16, little=True),
+        "e.wav": ima_wav(IR.encode(pcm, 1024), 2, 1024),
+        "f.wav": ms_wav(MR.encode(pcm, 1024), 2, 1024),
+        "g.mp1": layer1_frames(rng, 12, 2),
+        "h.mp2": layer2_frames(rng, 6, 2),
+    }
+    paths = []
+    for name, blob in files.items():
+        (tmp_path / name).write_bytes(blob)
+        paths.append(str(tmp_path / name))
+    before = SK.launches
+    gpu = decode_paths(paths, device=cuda_device)
+    assert SK.launches > before  # Layer I/II synthesis ran on the card
+    cpu = decode_paths(paths, device="cpu")
+    assert gpu.names == cpu.names and gpu.formats == cpu.formats
+    for k in ("sample_rate", "num_channels", "valid_frames", "err"):
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k))
+    assert int(gpu.err.abs().sum()) == 0
+    for i, fmt in enumerate(gpu.formats):
+        ref, got = cpu.file(i).pcm, gpu.file(i).pcm
+        if fmt in ("mp1", "mp2"):
+            rms = float(np.sqrt(((ref - got) ** 2).mean()))
+            bar = 5e-7 * max(1.0, float(np.sqrt((ref ** 2).mean())) / 0.2)
+            assert rms < bar, (i, rms, bar)
+        else:
+            np.testing.assert_array_equal(got, ref)
 
 
 def _on(dev, *arrays):

@@ -99,6 +99,24 @@ def test_native_sources_are_copies(name):
     assert rest == (REPO / "audio_decoder_tpu" / "native" / name).read_bytes()
 
 
+#: the port's Python modules copied verbatim from the JAX package (it
+#: imports jax on import; these modules do not)
+PY_COPIES = ["core/errors.py", "io/assets.py", "codecs/flac/host.py",
+             "codecs/mpeg/tables.py", "codecs/mpeg/huffman_tables.py",
+             "codecs/mpeg/synth_window.py", "codecs/mpeg/frontend.py",
+             "codecs/mpeg/layer12_tables.py"]
+
+
+@pytest.mark.parametrize("rel", PY_COPIES)
+def test_python_copies_are_verbatim(rel):
+    """Each copy equals its source in the JAX package byte for byte once
+    the first line, which names the source, is removed."""
+    first, rest = (PKG / rel).read_bytes().split(b"\n", 1)
+    assert first.startswith(b"# Verbatim copy of ")
+    assert f"audio_decoder_tpu/{rel} ".encode() in first
+    assert rest == (REPO / "audio_decoder_tpu" / rel).read_bytes()
+
+
 def test_generated_huffman_header_equals_the_committed_one(tmp_path):
     """utils/gen_luts writes huffman_lut.h from the port's own tables, byte
     for byte the JAX package's committed header."""

@@ -1,9 +1,11 @@
-"""PyTorch port, the whole slice: ``decode_dir`` on a mixed WAV + MP3
-folder against the JAX package's ``decode_dir``, both on the CPU.
+"""PyTorch port, the whole decode surface: ``decode_dir`` on mixed
+folders (WAV + MP3, then every family) against the JAX package's
+``decode_dir``, both on the CPU.
 
-Names, order, metadata and error codes must match exactly, WAV PCM
-exactly, MP3 PCM to amplitude-scaled RMS below 5e-7 (the repo's float32
-round-off bar, tests/test_mp3_tpu.py).  On the CPU no kernel launches.
+Names, order, metadata and error codes must match exactly, integer and
+PCM families exactly, MPEG PCM to amplitude-scaled RMS below 5e-7 (the
+repo's float32 round-off bar, tests/test_mp3_tpu.py).  On the CPU no
+kernel launches.
 """
 
 import os
@@ -105,12 +107,97 @@ def test_decode_paths_wav_only_matches_jax(tmp_path):
     np.testing.assert_array_equal(pb.data.numpy(), np.asarray(jb.data))
 
 
+def _family_blob(ext: str) -> bytes:
+    """A small valid file of the family behind ``ext``."""
+    from .seeded_writers import layer1_frames, layer2_frames
+    from .synth import make_aiff, make_au, make_caf
+
+    rng = np.random.default_rng(sum(map(ord, ext)))
+    pcm = rng.integers(-32768, 32768, size=(300, 2))
+    if ext == "aiff":
+        return make_aiff(pcm, 44100, 16)
+    if ext == "au":
+        return make_au(pcm, 22050, 3)
+    if ext == "caf":
+        return make_caf(pcm, 48000, bits=16, little=True)
+    if ext == "mp1":
+        return layer1_frames(rng, 4, 2)
+    return layer2_frames(rng, 4, 2)
+
+
+def _assert_batches_match(jb, pb):
+    assert pb.names == jb.names and pb.formats == jb.formats
+    for k in ("sample_rate", "num_channels", "bits_per_sample",
+              "valid_frames", "err"):
+        np.testing.assert_array_equal(getattr(pb, k).numpy(),
+                                      np.asarray(getattr(jb, k)), err_msg=k)
+    for i, name in enumerate(pb.names):
+        a, b = jb.file(i), pb.file(i)
+        assert a.pcm.shape == b.pcm.shape, name
+        if pb.formats[i] in ("mp1", "mp2", "mp3"):
+            if not b.pcm.size:
+                continue
+            rms, bar = _scaled_rms(a.pcm, b.pcm)
+            assert rms < bar, (name, rms, bar)
+        else:
+            np.testing.assert_array_equal(a.pcm, b.pcm, err_msg=name)
+
+
 @pytest.mark.parametrize("ext", ["aiff", "au", "caf", "mp1", "mp2"])
-def test_families_not_ported_raise(tmp_path, ext):
+def test_families_decode_like_jax(tmp_path, ext):
     path = tmp_path / f"x.{ext}"
-    path.write_bytes(b"\x00" * 64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        P.decode_paths([str(path)], device="cpu")
+    path.write_bytes(_family_blob(ext))
+    jb = J.decode_paths([str(path)])
+    pb = P.decode_paths([str(path)], device="cpu")
+    assert int(pb.err[0]) == 0 and pb.data.device.type == "cpu"
+    _assert_batches_match(jb, pb)
+
+
+def test_every_family_in_one_folder_matches_jax(tmp_path):
+    """The whole decode surface in one decode_dir: WAV, IMA and MS ADPCM
+    WAV, AIFF, AIFF-C ima4, AU, CAF, mp1, mp2, a Layer II .mp3, Layer III,
+    FLAC, garbage and an unknown extension."""
+    from . import ima_ref as IR
+    from . import ms_ref as MR
+    from .seeded_writers import ima_wav, ms_wav
+    from .synth import make_aiff
+
+    rng = np.random.default_rng(0xA11)
+    tone = np.clip(rng.normal(0, 3000, size=(700, 2)), -32768,
+                   32767).astype(np.int16)
+    files = {f"f_{e}.{e}": _family_blob(e)
+             for e in ("aiff", "au", "caf", "mp1", "mp2")}
+    files.update({
+        "pcm.wav": make_wav(tone.astype(np.int64), 44100, bits=16),
+        "ima.wav": ima_wav(IR.encode(tone, 512), 2, 512),
+        "ms.wav": ms_wav(MR.encode(tone, 256), 2, 256),
+        "ima4.aifc": make_aiff(np.zeros((0, 2), np.int16), 44100, 16,
+                               compression=b"ima4",
+                               data_override=IR.encode_ima4(tone),
+                               frames_override=700),
+        "layer2.mp3": _family_blob("mp2"),
+        "garbage.au": rng.integers(0, 256, size=500).astype(np.uint8).tobytes(),
+        "random.mp2": rng.integers(0, 256, size=900).astype(np.uint8).tobytes(),
+        "notes.xyz": b"not audio",
+    })
+    for name, blob in files.items():
+        (tmp_path / name).write_bytes(blob)
+    shutil.copyfile(os.path.join(DATA, "stereo_44k1_128k_js.mp3"),
+                    tmp_path / "layer3.mp3")
+    shutil.copyfile(os.path.join(DATA, "mono_48k_s24.flac"),
+                    tmp_path / "mono24.flac")
+    jb, jn = J.decode_dir(str(tmp_path))
+    hk, sk = HK.launches, SK.launches
+    pb, pn = P.decode_dir(str(tmp_path), device="cpu")
+    assert (HK.launches, SK.launches) == (hk, sk)  # CPU: plain twins only
+    assert pn == jn
+    _assert_batches_match(jb, pb)
+    err = dict(zip(pb.names, pb.err.tolist()))
+    assert err["notes"] == E.ERR_UNSUPPORTED
+    assert err["garbage"] != 0 and err["random"] != 0
+    assert all(v == 0 for k, v in err.items()
+               if k not in ("notes", "garbage", "random"))
+    assert dict(zip(pb.names, pb.formats))["layer2"] == "mp2"
 
 
 def test_native_frontend_builds_from_the_reference_source():

@@ -147,18 +147,45 @@ def test_decode_pcm_step_matches_jax(bits, channels):
     assert p_meta["err"][0] == 0 and all(p_meta["err"][2:] != 0)
 
 
-def test_decode_pcm_step_rejects_other_families():
-    bufs = torch.zeros((1, WIDTH), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_step(bufs, torch.zeros(1, dtype=torch.int32), max_frames=8,
-               family="aiff")
+def test_decode_pcm_step_families_match_jax():
+    """The step parses with the family it is given: WAV and AIFF files in
+    one batch, once as "wav" and once as "aiff"; each family decodes its
+    own files and flags the other's, as in JAX."""
+    from .synth import make_aiff
+
+    rng = np.random.default_rng(0xF0)
+    blobs = [make_wav(_pcm(rng, 40, 2, 16), bits=16),
+             make_aiff(_pcm(rng, 30, 2, 16), 44100, 16),
+             make_aiff(_pcm(rng, 20, 2, 16), 44100, 16, compression=b"sowt")]
+    bufs = np.zeros((len(blobs), WIDTH), np.uint8)
+    lens = np.zeros((len(blobs),), np.int32)
+    for i, b in enumerate(blobs):
+        bufs[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    for family, ok in (("wav", [0]), ("aiff", [1])):
+        kw = dict(bits=16, channels=2, max_frames=64, family=family)
+        j_pcm, j_meta = j_step(jnp.asarray(bufs), jnp.asarray(lens), **kw)
+        p_pcm, p_meta = p_step(torch.as_tensor(bufs), torch.as_tensor(lens),
+                               **kw)
+        np.testing.assert_array_equal(np.asarray(j_pcm), p_pcm.numpy())
+        for k in j_meta:
+            np.testing.assert_array_equal(np.asarray(j_meta[k]),
+                                          p_meta[k].numpy(), err_msg=k)
+        assert [i for i in range(3) if p_meta["err"][i] == 0] == ok
 
 
-def test_adpcm_raises_not_implemented():
+def test_ima_adpcm_decodes_like_jax():
     ima = make_wav(np.zeros((1, 1), np.int64), bits=4, fmt_code_override=0x11,
                    block_align_override=36,
                    fmt_tail=struct.pack("<HH", 2, 65),
-                   data_override=bytes(36))
-    asset = PAsset(path="ima.wav", name="ima", ext="wav", data=ima)
-    with pytest.raises(NotImplementedError, match="ADPCM"):
-        PR.decode_pcm_family("wav", [asset], device="cpu")
+                   data_override=bytes(range(7, 79, 2)))
+    j = JR.decode_pcm_family(
+        "wav", [JAsset(path="ima.wav", name="ima", ext="wav", data=ima)])
+    p = PR.decode_pcm_family(
+        "wav", [PAsset(path="ima.wav", name="ima", ext="wav", data=ima)],
+        device="cpu")
+    a, b = j[0][1].file(0), p[0][1].file(0)
+    assert a.err == b.err == 0 and b.pcm.shape == (65, 1)
+    assert (a.sample_rate, a.bits_per_sample) == (b.sample_rate,
+                                                  b.bits_per_sample)
+    np.testing.assert_array_equal(a.pcm, b.pcm)
