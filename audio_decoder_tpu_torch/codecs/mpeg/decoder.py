@@ -11,6 +11,11 @@ Layers I/II: the host fixed-width walk (``layer12.analyze_l1``/
 ``analyze_l2``) emits dense codes, classes and scalefactor indices; one
 ``layer12.l12_synthesize`` call per channel count requantizes them and
 runs the synthesis on the device.
+
+Streams: ``Mp3Stream`` (Layer III) and ``L12Stream`` (Layers I/II) decode
+one long file in fixed windows through the same device programs, with
+bounded device memory; ``mpeg_stream`` routes by layer and
+``gapless_bounds`` reads the LAME tag's encoder delay and padding.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch.profiler import record_function
 from ...core import errors as E
 from ...core.batch import AudioBatch
 from ...utils.trace import TRACE
+from . import frontend
 from . import layer12 as L12
 from . import native
 from .dsp import compact_lane_wire, mp3_decode_fused
@@ -69,6 +75,15 @@ def _rate_idx_arr(sample_rate: np.ndarray) -> np.ndarray:
     for i, sr in enumerate(np.asarray(sample_rate)):
         out[i] = T.RATE_IDX.get(int(sr), 0)
     return out
+
+
+def _n_big(big, valid) -> int:
+    """The scan's big-values pair cap for a lane set: the largest
+    big_values of a valid lane rounded up to 32 (pairs beyond 288 still
+    consume bits through the count1 cursor, so it follows the true max,
+    <= 511, not the 576-line cap), 32 for no valid lane."""
+    bvs = np.asarray(big).reshape(-1)[np.asarray(valid).reshape(-1) > 0]
+    return 32 if bvs.size == 0 else min(512, int(-(-int(bvs.max()) // 32) * 32))
 
 
 def _plan_buckets(big, valid, n_big: int):
@@ -203,11 +218,7 @@ def _decode_group_fused(
         g_cap = _bucket(max(probes[i]["n_granules"] for i in idxs))
         m_cap = _bucket(max(probes[i]["main_bytes"] for i in idxs), 1024)
         r = sess.lanes_batch([sess_idx[i] for i in idxs], g_cap, m_cap, ch)
-        act = r["valid"].reshape(-1) > 0
-        bvs = r["big"].reshape(-1)[act]
-        # pairs beyond 288 still consume bits (count1 cursor), so n_big
-        # follows the true max big_values (<= 511), not the 576-line cap
-        n_big = 32 if bvs.size == 0 else min(512, int(-(-int(bvs.max()) // 32) * 32))
+        n_big = _n_big(r["big"], r["valid"])
         perm, buckets = _plan_buckets(
             r["big"].reshape(-1), r["valid"].reshape(-1), n_big
         )
@@ -333,3 +344,331 @@ def decode_group(assets: "list[Asset]", *, device) -> list[tuple[list[int], Audi
             for local, batch in sub_pieces:
                 pieces.append(([idxs[j] for j in local], batch))
         return pieces
+
+
+class Mp3Stream:
+    """Chunked single-file Layer III decode on ``device``: bounded device
+    memory, one static plan.
+
+    The batch path materializes a whole file's PCM in one call whose
+    shapes scale with file length — fine for asset folders, wrong for a
+    two-hour stream (the granule tensors grow without bound).  This
+    decoder walks the file ONCE on the host (mp3fe's ``lanes_batch``, the
+    emission the batch path uses), then decodes fixed-size granule windows
+    through the same fused device program, so one lane plan serves any
+    file length and device memory is O(granules_per_chunk).
+
+    Chunk boundaries are made exact with a 2-granule warm-up re-decoded
+    at the head of every chunk (and discarded):
+
+      * the bit reservoir needs no decoded state at all — each lane's
+        absolute bit window into the concatenated main_data already
+        resolves ``main_data_begin``, the chunk just ships the byte
+        slice its windows cover;
+      * hybrid-IMDCT overlap-add is one granule of memory, and the
+        overlap TAIL a granule hands forward is a pure function of that
+        granule's own spectra — so warm-up granule #2 hands the first
+        kept granule its exact overlap;
+      * the polyphase synthesis FIR window spans 16 V-steps < the 18
+        steps one granule pushes, so the kept region's history lies
+        entirely inside correctly-overlapped warm-up output.
+
+    Yields float32 ``[samples, channels]`` host chunks; concatenated
+    output equals the one-shot batch decode on the same device.  The
+    entropy scan (K1) and the synthesis (K2) run as the CUDA kernels on
+    a CUDA device and as their plain twins on the CPU."""
+
+    WARMUP = 2
+
+    def __init__(self, data: bytes, granules_per_chunk: int = 512, *,
+                 device="cuda"):
+        from ..registry import resolve_device
+
+        self.device = resolve_device(device)
+        if frontend.probe_layer(data) != 3:
+            raise E.UnsupportedFormatError(
+                "Mp3Stream decodes Layer III; use decode_group for I/II")
+        if granules_per_chunk < 8:
+            raise ValueError("granules_per_chunk must be >= 8")
+        self.gpc = int(granules_per_chunk)
+        p = native.probe(data)
+        E.raise_for_code(int(p["err"]), "mp3 stream probe")
+        ch = int(p["channels"])
+        g_tot = int(p["n_granules"])
+        m_cap = -(-int(p["main_bytes"]) // 32) * 32
+        self._r = native.lanes_batch([data], max(g_tot, 1), m_cap, ch)
+        self._joint = bool(p["joint"])
+        E.raise_for_code(int(self._r["err"][0]), "mp3 stream")
+        self.channels = ch
+        self.n_granules = g_tot
+        self.sample_rate = int(self._r["sample_rate"][0])
+        self.total_samples = g_tot * 576
+        self._gpf = 2 if self.sample_rate >= 32000 else 1
+        self._rate_idx = _rate_idx_arr(self._r["sample_rate"])
+        # One static plan for the WHOLE stream: every chunk shares one
+        # (g_cap, m_cap, n_big, bucket) signature (the batch path plans
+        # per batch instead — its lanes all run in one call anyway).
+        self._n_big = _n_big(self._r["big"], self._r["valid"])
+        g_cap = self.gpc + self.WARMUP
+        self._m_cap = _bucket(self._widest_window(g_cap), 1024)
+        self._buckets = ((g_cap * ch, self._n_big, 144),)
+
+    def _widest_window(self, g_cap: int) -> int:
+        """The largest ``_byte_window`` byte count of any ``g_cap`` granules
+        in a row: a chunk after a seek may start at any granule, and every
+        chunk's granules lie inside such a run.  Sliding minimum and
+        maximum by blocks of ``g_cap`` (van Herk), O(granules)."""
+        r = self._r
+        g = self.n_granules
+        L = min(g_cap, g)
+        if L == 0:
+            return 64
+        # per granule, over its channels' active lanes
+        act = r["valid"][0, :g] > 0
+        lo = np.where(act, r["start"][0, :g], np.iinfo(np.int64).max).min(1)
+        hi = np.where(act, np.maximum(r["end"][0, :g], r["limit"][0, :g]),
+                      -1).max(1)
+
+        def sliding(x, fn, fill):
+            pad = np.full(-(-g // L) * L, fill, np.int64)
+            pad[:g] = x
+            blocks = pad.reshape(-1, L)
+            head = fn.accumulate(blocks, axis=1).ravel()
+            tail = fn.accumulate(blocks[:, ::-1], axis=1)[:, ::-1].ravel()
+            return fn(tail[: g - L + 1], head[L - 1: g])
+
+        bit_lo = sliding(lo, np.minimum, np.iinfo(np.int64).max)
+        bit_hi = sliding(hi, np.maximum, -1)
+        live = bit_hi >= 0
+        n = bit_hi[live] // 8 + 1 - (bit_lo[live] // 8) // 32 * 32 + 64
+        return int(max(64, n.max(initial=0)))
+
+    def _byte_window(self, lo: int, hi: int) -> tuple[int, int]:
+        """(byte_lo, byte_count) of main_data covering granules [lo, hi)
+        — every reservoir reach-back and 64 bytes of slack included."""
+        r = self._r
+        act = r["valid"][0, lo:hi] > 0
+        if not act.any():
+            return 0, 64
+        bit_lo = int(r["start"][0, lo:hi][act].min())
+        bit_hi = int(max(r["end"][0, lo:hi][act].max(),
+                         r["limit"][0, lo:hi][act].max()))
+        byte_lo = (bit_lo // 8) // 32 * 32
+        return byte_lo, bit_hi // 8 + 1 - byte_lo + 64
+
+    def chunk_wire(self, lo: int, hi: int) -> dict:
+        """The packed lane dict of granules [lo, hi), padded to the
+        stream's ``gpc + WARMUP`` granules, with the bit windows rebased
+        onto the chunk's ``[1, m_cap]`` main_data byte slice."""
+        r = self._r
+        g_cap = self.gpc + self.WARMUP
+        g_n = hi - lo
+        sl = {}
+        for k in ("start", "end", "limit", "big", "r1", "r2", "tsel",
+                  "c1sel", "valid", "exp_b", "cfg", "stflags", "sfr"):
+            sl[k] = np.zeros((1, g_cap) + r[k].shape[2:], r[k].dtype)
+            sl[k][0, :g_n] = r[k][0, lo:hi]
+        # rebase the bit windows onto the chunk's main_data byte slice:
+        # the reservoir reaches backward only through these windows, so
+        # covering [min start, max limit/end) bytes is sufficient by
+        # construction
+        act = sl["valid"][0, :g_n] > 0
+        for k in ("start", "end", "limit"):  # invalid lanes keep absolute
+            sl[k][0, :g_n][~act] = 0         # offsets — zero, like padding
+        byte_lo, need = self._byte_window(lo, hi)
+        if need > self._m_cap:
+            raise ValueError(
+                f"granules [{lo}, {hi}) span {need} main_data bytes, more "
+                f"than the stream's {self._m_cap}")
+        main = np.zeros((1, self._m_cap), np.uint8)
+        avail = min(self._m_cap, r["main"].shape[1] - byte_lo)
+        main[0, :avail] = r["main"][0, byte_lo : byte_lo + avail]
+        for k in ("start", "end", "limit"):
+            sl[k][0, :g_n][act] -= byte_lo * 8
+        return dict(sl, main=main)
+
+    def _chunk_pcm(self, lo: int, hi: int) -> np.ndarray:
+        """Decode granules [lo, hi) into a host [g_cap*576, C] array."""
+        pcm = mp3_decode_fused(
+            *fused_wire_args(self.chunk_wire(lo, hi), self._rate_idx,
+                             self.device),
+            None,
+            channels=self.channels,
+            joint_stereo=self._joint,
+            granules_per_frame=self._gpf,
+            buckets=self._buckets,
+        )
+        # the decode emits flat interleaved [B, S*C]; host reshape is free
+        return pcm[0].cpu().numpy().reshape(-1, self.channels)
+
+    def chunks(self, start_sample: int = 0):
+        """Yield float32 [samples, channels] host arrays in stream order.
+
+        `start_sample` seeks: output begins exactly at that sample of the
+        one-shot decode (concatenated chunks == ``oneshot[start_sample:]``
+        bit-identically).  Seeking costs nothing extra — the 2-granule
+        warm-up that makes every chunk boundary exact also makes any
+        granule a valid entry point (the reservoir is resolved through
+        absolute byte windows, not decoded state)."""
+        if not 0 <= start_sample <= self.total_samples:
+            raise ValueError(
+                f"start_sample {start_sample} outside [0, {self.total_samples}]")
+        g0 = start_sample // 576
+        trim = start_sample - g0 * 576
+        for a in range(g0, self.n_granules, self.gpc):
+            lo = max(a - self.WARMUP, 0)
+            hi = min(a + self.gpc, self.n_granules)
+            pcm = self._chunk_pcm(lo, hi)
+            keep = a - lo
+            out = pcm[keep * 576 : (keep + hi - a) * 576, : self.channels]
+            if trim:
+                out, trim = out[trim:], 0
+            yield out
+
+    def __iter__(self):
+        return self.chunks()
+
+
+class L12Stream:
+    """Chunked single-file Layer I/II decode on ``device``.
+
+    Layers I/II have NO bit reservoir — every frame's payload is
+    self-contained — so unlike Layer III the host analysis can also be
+    O(chunk): __init__ walks the sync headers once (positions only), and
+    each chunk re-parses just the byte slice its frames occupy.  The only
+    cross-chunk state is the polyphase synthesis FIR history (16
+    V-steps); re-decoding ceil(16 / steps_per_frame) warm-up frames at
+    each chunk head — 1 frame for Layer II (36 steps), 2 for Layer I
+    (12) — reproduces it exactly, so concatenated chunks equal the
+    one-shot decode.  The synthesis runs as the K2 kernel on a CUDA
+    device."""
+
+    def __init__(self, data: bytes, layer: int | None = None,
+                 frames_per_chunk: int = 128, *, device="cuda"):
+        from ..registry import resolve_device
+
+        self.device = resolve_device(device)
+        if layer is None:
+            layer = frontend.probe_layer(data)
+        if layer not in (1, 2):
+            raise E.UnsupportedFormatError(
+                f"L12Stream decodes Layers I/II (probed layer {layer})")
+        if frames_per_chunk < 2:
+            raise ValueError("frames_per_chunk must be >= 2")
+        code = 3 if layer == 1 else 2  # header layer code
+        frames = [(p, h) for p, h in frontend.find_frames(data)
+                  if h["layer"] == code]
+        if not frames:
+            raise E.InvalidDataError(f"no Layer {'I' * layer} frames")
+        h0 = frames[0][1]
+        # same consistency filter as analyze_l1/l2 so framing matches
+        self._frames = [
+            (p, h) for p, h in frames
+            if h["sr"] == h0["sr"] and h["channels"] == h0["channels"]
+            and h["version"] == h0["version"]
+        ]
+        self._blob = data
+        self._analyze = L12.analyze_l1 if layer == 1 else L12.analyze_l2
+        self.layer = layer
+        self.fpc = int(frames_per_chunk)
+        self.channels = h0["channels"]
+        self.sample_rate = h0["sr"]
+        self.spf = 12 if layer == 1 else 36  # V-steps per frame
+        #: the synthesis FIR window spans 16 V-steps of history
+        self.WARMUP = -(-16 // self.spf)
+        self.n_frames = len(self._frames)
+        self.total_samples = self.n_frames * self.spf * 32
+
+    def chunk_arrays(self, lo: int, hi: int) -> tuple:
+        """Frames [lo, hi) as l12_synthesize's host (codes, cls, sf_idx),
+        padded to the stream's ``fpc + WARMUP`` frames: the host walk
+        re-parses just the byte slice those frames occupy."""
+        F_cap = self.fpc + self.WARMUP
+        ch = self.channels
+        sub = self._frames[lo:hi]
+        b0 = sub[0][0]
+        b1 = sub[-1][0] + sub[-1][1]["frame_len"]
+        with TRACE.stage("l12/analyze"), record_function("l12.analyze"):
+            an = self._analyze(
+                self._blob[b0:b1], frames=[(p - b0, h) for p, h in sub])
+        n = hi - lo
+        codes = np.zeros((1, F_cap, ch, 32, self.spf), np.int32)
+        cls = np.zeros((1, F_cap, ch, 32), np.int8)
+        sf_idx = np.full((1, F_cap, ch, 32, 3), 63, np.int8)
+        codes[0, :n] = an.codes
+        cls[0, :n] = an.cls
+        sf_idx[0, :n] = an.sf_idx
+        return codes, cls, sf_idx
+
+    def chunks(self, start_sample: int = 0):
+        """Yield float32 [samples, channels] host chunks; `start_sample`
+        seeks (output == one-shot ``pcm[start_sample:]`` bit-identically)."""
+        if not 0 <= start_sample <= self.total_samples:
+            raise ValueError(
+                f"start_sample {start_sample} outside [0, {self.total_samples}]")
+        spfr = self.spf * 32  # samples per frame
+        f0 = start_sample // spfr
+        trim = start_sample - f0 * spfr
+        ch = self.channels
+        for a in range(f0, self.n_frames, self.fpc):
+            lo = max(a - self.WARMUP, 0)
+            hi = min(a + self.fpc, self.n_frames)
+            pcm = L12.l12_synthesize(
+                *(torch.as_tensor(x, device=self.device)
+                  for x in self.chunk_arrays(lo, hi)),
+                channels=ch, steps=self.spf,
+            )[0].cpu().numpy().reshape(-1, ch)  # flat interleaved
+            keep = a - lo
+            out = pcm[keep * spfr : (keep + hi - a) * spfr, :ch]
+            if trim:
+                out, trim = out[trim:], 0
+            yield out
+
+    def __iter__(self):
+        return self.chunks()
+
+
+def mpeg_stream(data: bytes, *, granules_per_chunk: int = 512,
+                frames_per_chunk: int = 128, device="cuda"):
+    """Streaming decoder for any MPEG audio layer on ``device``: probes
+    the first valid frame and returns an Mp3Stream (Layer III) or
+    L12Stream (I/II).  Both yield float32 [samples, channels] chunks whose
+    concatenation equals the one-shot decode, and both seek via
+    ``.chunks(start_sample=N)``."""
+    layer = frontend.probe_layer(data)
+    if layer == 3:
+        return Mp3Stream(data, granules_per_chunk=granules_per_chunk,
+                         device=device)
+    if layer in (1, 2):
+        return L12Stream(data, layer=layer, frames_per_chunk=frames_per_chunk,
+                         device=device)
+    raise E.InvalidDataError("no MPEG audio frames found")
+
+
+#: standard MDCT + synthesis filterbank decoder delay (samples): the
+#: first 529 output samples of any conformant decoder are filter warm-up
+DECODER_DELAY = 529
+
+
+def gapless_bounds(blob: bytes, total_frames: int) -> tuple[int, int] | None:
+    """(start, length) window of the true audio within the decoded PCM.
+
+    Uses the LAME tag's encoder delay/padding plus the standard
+    529-sample decoder delay, so ``pcm[start : start + length]`` is the
+    encoder's input sample-exactly in position and length (the raw
+    decode leads with delay+529 warm-up samples and trails with
+    padding-529 flush samples).  None when the stream carries no tag."""
+    info = frontend.lame_gapless(blob)
+    if info is None:
+        return None
+    start = info["delay"] + DECODER_DELAY
+    if info["frames"]:
+        length = (info["frames"] * info["samples_per_frame"]
+                  - info["delay"] - info["padding"])
+    else:
+        length = total_frames - start - max(
+            info["padding"] - DECODER_DELAY, 0)
+    length = max(0, min(length, total_frames - start))
+    if start >= total_frames:
+        return None
+    return start, length

@@ -332,6 +332,35 @@ def _apply_stereo_coeffs(x, st):
     return torch.stack([L, R], dim=2)
 
 
+#: rows of every IMDCT product call.  cuBLAS picks its SGEMM kernel by the
+#: row count, and the kernels round differently (on the H100 a product of
+#: fewer than ~3,300 rows differs from a larger one in the last bits), so
+#: the product runs in calls of exactly this many rows: a granule's result
+#: then never depends on how many granules one call decodes, and a stream's
+#: chunk equals the one-shot decode bit for bit.  2^18 is the count whose
+#: calls take least time on the 16-file stereo group's 786,432 rows (three
+#: calls), and a 512-granule stream chunk pads to it (PERF.md, measured by
+#: tools/torch_imdct_rows.py).
+_MM_ROWS = 1 << 18
+
+
+def _fixed_rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., K] @ b [K, N]`` in calls of exactly ``_MM_ROWS`` rows (the
+    last one zero-padded)."""
+    K, N = b.shape
+    flat = a.reshape(-1, K)
+    n = flat.shape[0]
+    out = torch.empty((n, N), dtype=a.dtype, device=a.device)
+    full = n - n % _MM_ROWS
+    for i in range(0, full, _MM_ROWS):
+        torch.mm(flat[i:i + _MM_ROWS], b, out=out[i:i + _MM_ROWS])
+    if full < n:
+        tail = a.new_zeros((_MM_ROWS, K))
+        tail[: n - full] = flat[full:]
+        out[full:] = torch.mm(tail, b)[: n - full]
+    return out.reshape(*a.shape[:-1], N)
+
+
 def _hybrid_synthesis(x, win_idx, aa_bound):
     """Antialias → hybrid IMDCT → overlap-add → polyphase synthesis."""
     return polyphase_synthesis(_hybrid_subbands(x, win_idx, aa_bound))
@@ -359,7 +388,7 @@ def _hybrid_subbands(x, win_idx, aa_bound):
     raw = torch.zeros((B, G, C, 32, 36), dtype=torch.float32, device=x.device)
     for bt in range(4):
         mw = (win_idx == bt)[..., None]
-        raw = raw + torch.matmul(torch.where(mw, xb, 0.0), c["w_all"][bt].t())
+        raw = raw + _fixed_rows_mm(torch.where(mw, xb, 0.0), c["w_all"][bt].t())
 
     # overlap-add: granule g's head + granule g-1's tail
     prev = torch.cat([torch.zeros_like(raw[:, :1]), raw[:, :-1]], dim=1)

@@ -46,10 +46,14 @@ _ADPCM = {"ima": unpack_ima_adpcm, "ms": unpack_ms_adpcm, "ima4": unpack_ima4}
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without a card raises."""
+    """``device`` as a torch.device; a CUDA device without a card, or past
+    the last card, raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    if dev.type == "cuda" and (dev.index or 0) >= torch.cuda.device_count():
+        raise RuntimeError(f"device {device!r} requested but only "
+                           f"{torch.cuda.device_count()} CUDA devices exist")
     return dev
 
 

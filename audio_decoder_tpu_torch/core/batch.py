@@ -42,6 +42,13 @@ class AudioBatch:
     formats: tuple = ()
     channels: int = 1
 
+    @classmethod
+    def from_pcm(cls, pcm: torch.Tensor, **kw) -> "AudioBatch":
+        """Build from a planar ``[B, S, C]`` PCM tensor (flattening is free
+        in C order)."""
+        B, _S, C = pcm.shape
+        return cls(data=pcm.reshape(B, -1), channels=int(C), **kw)
+
     @property
     def pcm(self) -> torch.Tensor:
         """Planar ``[B, S, C]`` view of ``data``."""

@@ -55,7 +55,27 @@ Phases:
      and ms_ref.py's decoders, and that the synthesis kernel (K2)
      launched; holds K2 against its twin at the Layer I/II groups' shapes
      (and at T = 2048·12 and 512·36) and times it; prints each family's
-     audio-seconds per second with its host milliseconds per stage.
+     audio-seconds per second with its host milliseconds per stage;
+  9. the single-file streams: a 180 s stereo MP3 (the committed fixture 18
+     times), 30 s Layer I and Layer II streams, a 10-minute 44.1 kHz
+     stereo 16-bit WAV, a 60 s AIFF 24-bit, a 60 s WAV IMA ADPCM (block_align
+     2048, random nibbles) and the committed FLAC music fixture, each
+     through ``stream_file(device="cuda")`` at the default chunk sizes and
+     from a seek that lands inside a granule, frame, block and chunk; the
+     chunks must equal the one-shot ``decode_paths(device="cuda")`` bit for
+     bit; prints each stream's audio-seconds per second, time to the first
+     chunk, chunk count and peak device memory against the one-shot
+     decode's; counts each stream run's launches on its own (set to 0
+     just before it, read just after) and checks them: K1 and K2 once per
+     Layer III chunk, K2 once per Layer I/II chunk, K3 and K4 once per
+     FLAC chunk, nothing for the PCM streams; holds K1, K2, K3 and K4
+     against their twins at the streams' chunk shapes and times them;
+ 10. the batch DSP: ``consensus_for`` on the mixed folder's batch (card =
+     CPU); ``resample_to_consensus`` of 16 × 10 s stereo tones at each of
+     48,000, 32,000 and 22,050 Hz plus 17 at 44,100 Hz against the CPU path
+     (max abs 2e-6, amplitude-scaled RMS 5e-7), each tone above 60 dB SNR,
+     the 44.1 kHz rows bit for bit, with each ratio's device ms and patch
+     bytes; ``route_channels`` mono→stereo and stereo→mono against the CPU.
 
 With ``--profile`` it then profiles one decode of the 16 FLAC files with
 torch.profiler and prints each FLAC stage's host and device time (the
@@ -998,7 +1018,6 @@ def phase_families_k2(dev, src: dict) -> list[dict]:
     from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
     from audio_decoder_tpu_torch.codecs.mpeg import dsp
     from audio_decoder_tpu_torch.codecs.mpeg import layer12 as L12
-    from audio_decoder_tpu_torch.ops import synth_kernel as SK
 
     c = dsp._consts(dev)
     cases = []
@@ -1012,27 +1031,7 @@ def phase_families_k2(dev, src: dict) -> list[dict]:
     for steps, frames in ((12, 2048), (36, 512)):
         cases.append((f"T = {frames}·{steps}", torch.randn(
             (16, frames * steps, 32), device=dev, generator=gen)))
-    out = []
-    for label, ts in cases:
-        got = SK.polyphase_synthesis_blocks(ts, c["synth_n"], c["g2"])
-        ref = SK.synthesis_plain(ts, c["synth_n"], c["g2"])
-        err = float((got - ref).abs().max())
-        if not torch.allclose(got, ref, atol=1e-4, rtol=1e-5):
-            fail(f"K2 at the {label} shape {tuple(ts.shape)} differs from "
-                 f"its plain form: max abs err {err}")
-        ms = cuda_ms(lambda: SK.polyphase_synthesis_blocks(ts, c["synth_n"],
-                                                           c["g2"]), 50)
-        plain_ms = cuda_ms(lambda: SK.synthesis_plain(ts, c["synth_n"],
-                                                      c["g2"]), 10)
-        BC, T, _ = ts.shape
-        flops = 2.0 * BC * T * (64 * 32 + 16 * 32)
-        b_ms, by = bound(nbytes(ts, c["synth_n"], c["g2"], got), flops)
-        log(f"K2 at the {label}: TS {tuple(ts.shape)}, max abs err {err:.3e} "
-            f"(atol 1e-4, rtol 1e-5); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
-        out.append(dict(shape=list(ts.shape), max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=by))
-    return out
+    return [_k2_timed(label, ts, c) for label, ts in cases]
 
 
 def phase_families_rate(folder: str, card: str, dev) -> None:
@@ -1117,6 +1116,421 @@ def phase_families_profile(folder: str, card: str, dev) -> None:
             f"[{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the single-file streams (stream_file); phase 10: the batch DSP
+# ---------------------------------------------------------------------------
+
+STREAM_MP3_COPIES = 18  # the 10 s stereo fixture 18 times: 180 s
+STREAM_L12_SECONDS = 30
+STREAM_WAV_SECONDS = 600
+STREAM_PCM_SECONDS = 60
+#: each stream's seek quantum: granule, frame, block or chunk (a seek must
+#: land inside one)
+SEEK_QUANTA = (576, 384, 1152, 2041, 4096, 1 << 17)
+
+
+def write_stream_files(folder: str, seed: int) -> dict:
+    """One long file per stream kind, from the seed: {kind: path}."""
+    from tests import seeded_writers as SW
+    from tests.synth import make_aiff
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 4)
+    blobs = {
+        "mp3": ("long.mp3", open(STEREO_MP3, "rb").read() * STREAM_MP3_COPIES),
+        "layer1": ("long.mp1", SW.layer1_frames(
+            rng, -(-STREAM_L12_SECONDS * RATE // 384), 2)),
+        "layer2": ("long.mp2", SW.layer2_frames(
+            rng, -(-STREAM_L12_SECONDS * RATE // 1152), 2, sr=RATE, kbps=192)),
+        "wav": ("long.wav", wav_blob(rng.integers(
+            -32768, 32768, size=(STREAM_WAV_SECONDS * RATE, 2), dtype=np.int16),
+            RATE)),
+        "aiff24": ("long.aif", make_aiff(rng.integers(
+            -(1 << 23), 1 << 23, size=(STREAM_PCM_SECONDS * RATE, 2)), RATE, 24)),
+    }
+    # IMA ADPCM blocks of random nibbles under valid headers (step index
+    # 0..88, reserved byte 0): any nibble decodes, so no encoder is needed
+    spb = SW.ima_spb(ADPCM_BA, 2)
+    ima = rng.integers(0, 256, size=(-(-STREAM_PCM_SECONDS * RATE // spb),
+                                     ADPCM_BA), dtype=np.uint8)
+    ima[:, [2, 6]] %= 89
+    ima[:, [3, 7]] = 0
+    blobs["ima"] = ("long_ima.wav", SW.ima_wav(ima.tobytes(), 2, ADPCM_BA))
+    paths = {}
+    for kind, (name, blob) in blobs.items():
+        paths[kind] = os.path.join(folder, name)
+        with open(paths[kind], "wb") as f:
+            f.write(blob)
+    paths["flac"] = MUSIC_FLAC
+    log(f"stream files written in {time.perf_counter() - t0:.3f} s: "
+        + ", ".join(f"{k} {os.path.getsize(p)} B" for k, p in paths.items()))
+    return paths
+
+
+def _seek_sample(total: int) -> int:
+    """A sample five sixths of the way in (the seek decodes the rest) that
+    no seek quantum divides."""
+    s = total * 5 // 6 + 7
+    while any(s % q == 0 for q in SEEK_QUANTA):
+        s += 1
+    return s
+
+
+#: the kernels each stream launches once per chunk; it launches no other
+STREAM_KERNELS = {
+    "mp3": ("mp3_entropy_scan", "mp3_polyphase_synthesis"),
+    "layer1": ("mp3_polyphase_synthesis",),
+    "layer2": ("mp3_polyphase_synthesis",),
+    "flac": ("window_add", "window_add2"),
+}
+
+
+def _counted_stream(kind: str, path: str, dev, start_sample: int = 0):
+    """One ``stream_file(device="cuda")`` run with every launch count set
+    to 0 just before it and read just after it: (chunks, seconds to the
+    first chunk, wall seconds, {kernel: launches}).  Fails unless each
+    kernel of ``STREAM_KERNELS[kind]`` launched once per chunk and no
+    other kernel launched."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import synth_kernel as SK
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    for k in PW.launches:
+        PW.launches[k] = 0
+    HK.launches = 0
+    SK.launches = 0
+    chunks, first = [], None
+    t0 = time.perf_counter()
+    for c in adt.stream_file(path, start_sample=start_sample, device=dev):
+        if first is None:
+            first = time.perf_counter() - t0
+        chunks.append(c)
+    wall = time.perf_counter() - t0
+    counts = {"mp3_entropy_scan": HK.launches,
+              "mp3_polyphase_synthesis": SK.launches, **PW.launches}
+    want = {k: len(chunks) if k in STREAM_KERNELS.get(kind, ()) else 0
+            for k in counts}
+    if counts != want:
+        fail(f"stream {kind} from sample {start_sample}: launches {counts}, "
+             f"want {want} ({len(chunks)} chunks)")
+    return chunks, first, wall, counts
+
+
+def phase_streams(paths: dict, dev, card: str) -> dict:
+    """Every stream through ``stream_file(device="cuda")`` at the default
+    chunk sizes and once from a seek, each against the one-shot
+    ``decode_paths(device="cuda")`` of the same file bit for bit; prints
+    the rates, the time to the first chunk, the chunk count and the peak
+    device memory of the stream and of the one-shot decode.  Each stream
+    run is counted on its own (``_counted_stream``); returns {kernel:
+    {stream kind: launches over its two runs}}."""
+    import audio_decoder_tpu_torch as adt
+
+    per_kernel: dict = {}
+    for kind, path in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        one = adt.decode_paths([path], device=dev)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated() - base
+        f = one.file(0)
+        if f.err != 0:
+            fail(f"stream {kind}: the one-shot decode has error code {f.err}")
+        ref, rate = f.pcm[:, : f.num_channels], f.sample_rate
+        del one
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        chunks, first, wall, counts = _counted_stream(kind, path, dev)
+        peak = torch.cuda.max_memory_allocated() - base
+        got = np.concatenate(chunks)
+        if got.shape != ref.shape or not np.array_equal(got, ref):
+            bad = (int((got != ref).sum()) if got.shape == ref.shape
+                   else f"shape {got.shape} vs {ref.shape}")
+            fail(f"stream {kind}: the chunks differ from the one-shot decode "
+                 f"on the card ({bad})")
+        s = _seek_sample(len(ref))
+        seek, _f, _w, seek_counts = _counted_stream(kind, path, dev, s)
+        if not np.array_equal(np.concatenate(seek), ref[s:]):
+            fail(f"stream {kind}: the chunks from sample {s} differ from the "
+                 "one-shot decode")
+        if kind == "wav" and 4 * peak >= one_peak:
+            fail(f"stream wav: peak device memory {peak} B is not bounded by "
+                 f"the chunk (one-shot {one_peak} B)")
+        for k in STREAM_KERNELS.get(kind, ()):
+            per_kernel.setdefault(k, {})[kind] = counts[k] + seek_counts[k]
+        audio_s = len(ref) / rate
+        log(f"stream {kind}: {len(chunks)} chunks, {audio_s:.3f} audio-s, wall "
+            f"{wall:.3f} s, {audio_s / wall:.3f} audio-s/s, first chunk "
+            f"{first * 1e3:.3f} ms; peak device memory {peak} B (one-shot "
+            f"{one_peak} B, {one_s:.3f} s); equal to the one-shot decode bit "
+            f"for bit, also from sample {s} ({len(seek)} chunks); launches "
+            f"{ {k: n for k, n in counts.items() if n} }, from the seek "
+            f"{ {k: n for k, n in seek_counts.items() if n} }  [{card}]")
+    log(f"streams launches, each stream run counted on its own: {per_kernel}")
+    return per_kernel
+
+
+def _k2_timed(label: str, ts, c) -> dict:
+    """K2 against its plain twin on ``ts`` (within atol 1e-4 / rtol 1e-5),
+    timed beside it with its bytes/operations bound."""
+    from audio_decoder_tpu_torch.ops import synth_kernel as SK
+
+    got = SK.polyphase_synthesis_blocks(ts, c["synth_n"], c["g2"])
+    ref = SK.synthesis_plain(ts, c["synth_n"], c["g2"])
+    err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, atol=1e-4, rtol=1e-5):
+        fail(f"K2 at the {label} shape {tuple(ts.shape)} differs from "
+             f"its plain form: max abs err {err}")
+    ms = cuda_ms(lambda: SK.polyphase_synthesis_blocks(ts, c["synth_n"],
+                                                       c["g2"]), 50)
+    plain_ms = cuda_ms(lambda: SK.synthesis_plain(ts, c["synth_n"],
+                                                  c["g2"]), 10)
+    BC, T, _ = ts.shape
+    flops = 2.0 * BC * T * (64 * 32 + 16 * 32)
+    b_ms, by = bound(nbytes(ts, c["synth_n"], c["g2"], got), flops)
+    log(f"K2 at the {label}: TS {tuple(ts.shape)}, max abs err {err:.3e} "
+        f"(atol 1e-4, rtol 1e-5); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return dict(shape=list(ts.shape), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+
+
+def _window_timed(label: str, name: str, arrays, n_out: int) -> dict:
+    """K3 (``window_add``) or K4 (``window_add2``) against its plain twin
+    on ``arrays`` exactly, timed beside the twin and one ``index_add_``
+    call of the same sum, with its bytes bound."""
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    fn = getattr(PW, name)
+    plain = getattr(PW, name + "_plain")
+    got, ref = fn(*arrays, n_out), plain(*arrays, n_out)
+    torch.cuda.synchronize()
+    if got.dtype != ref.dtype or not torch.equal(got, ref):
+        fail(f"{name} at the {label} differs from its plain twin")
+    lib = _index_add_call(list(zip(arrays[0::2], arrays[1::2])), n_out)
+    if not torch.equal(lib()[:n_out], ref):
+        fail(f"{name} at the {label}: index_add_ differs from the plain twin")
+    ms = cuda_ms(lambda: fn(*arrays, n_out), 50)
+    plain_ms = cuda_ms(lambda: plain(*arrays, n_out), 20)
+    library_ms = cuda_ms(lib, 20)
+    b_ms, by = bound(nbytes(*arrays) + n_out * got.element_size())
+    shapes = [list(a.shape) for a in arrays]
+    log(f"{name} at the {label}: inputs {shapes}, n_out {n_out}: exact; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return dict(shape=shapes, n_out=n_out, max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=library_ms)
+
+
+def phase_stream_kernels(paths: dict, dev) -> tuple[list, list, dict]:
+    """K1, K2, K3 and K4 against their twins at the streams' chunk shapes:
+    a middle chunk of the 180 s MP3 (one K1 launch over (512 + 2)·2 lanes,
+    K2 over 514·18 steps), the first chunk of the Layer I and II streams
+    (K2), and the first chunk of the FLAC stream (K4, then K3)."""
+    from audio_decoder_tpu_torch.codecs.flac import decoder as FD
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from audio_decoder_tpu_torch.codecs.flac.stream import FlacStream
+    from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
+    from audio_decoder_tpu_torch.codecs.mpeg import dsp
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.codecs.mpeg import layer12 as L12
+
+    st = D.Mp3Stream(open(paths["mp3"], "rb").read(), device=dev)
+    lo, hi = st.gpc - st.WARMUP, 2 * st.gpc
+    args = D.fused_wire_args(st.chunk_wire(lo, hi), st._rate_idx, dev)
+    main, parts = _scan_inputs(args, None, st._buckets)
+    (lanes, nb, nc), = parts
+    got = HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc)
+    ref = HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc)
+    for name, g, r in zip(("big576", "c1", "fail"), got, ref):
+        if not torch.equal(g, r):
+            fail(f"K1 {name} at the Mp3Stream chunk differs from the plain "
+                 f"scan in {int((g != r).sum())} entries")
+    ms = cuda_ms(lambda: HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc), 50)
+    plain_ms = cuda_ms(lambda: HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc), 2)
+    b_ms, by = bound(nbytes(main, *lanes, *got))
+    log(f"K1 at the Mp3Stream chunk: main_u8 {tuple(main.shape)}, "
+        f"{lanes[0].shape[0]} lanes, n_big {nb}: exact; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    k1 = [dict(shape=[int(lanes[0].shape[0]), int(main.shape[1])],
+               max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=by)]
+
+    c = dsp._consts(dev)
+    TS = dsp.fused_subband_samples(*args, None, channels=st.channels,
+                                   joint_stereo=st._joint,
+                                   granules_per_frame=st._gpf,
+                                   buckets=st._buckets)
+    B, C, T, _ = TS.shape
+    k2 = [_k2_timed("Mp3Stream chunk", TS.reshape(B * C, T, 32).contiguous(),
+                    c)]
+    for kind in ("layer1", "layer2"):
+        ls = D.L12Stream(open(paths[kind], "rb").read(), device=dev)
+        arrays = ls.chunk_arrays(0, min(ls.fpc + ls.WARMUP, ls.n_frames))
+        TS = L12.l12_subband_samples(*(torch.as_tensor(a, device=dev)
+                                       for a in arrays))
+        B, C, T, _ = TS.shape
+        k2.append(_k2_timed(f"L12Stream {kind} chunk",
+                            TS.reshape(B * C, T, 32).contiguous(), c))
+    fs = FlacStream(open(paths["flac"], "rb").read(), device=dev)
+    wargs, statics = FD.pack_wire(fs._slices[:1], dev, fs._sizing)
+    w = FV.flac_decode_wire(*wargs, stage="windows", **statics)
+    k34 = {name: [_window_timed("FlacStream chunk", name, w[name][:-1],
+                                w[name][-1])]
+           for name in ("window_add2", "window_add")}
+    return k1, k2, k34
+
+
+def _snr_vs_tone(y: np.ndarray, freq: float, rate: int) -> float:
+    """SNR of ``y`` against its best-fit sinusoid at ``freq`` (edges
+    trimmed), in dB."""
+    n = y.shape[0]
+    t = np.arange(n) / rate
+    lo, hi = n // 8, n - n // 8
+    basis = np.stack([np.sin(2 * np.pi * freq * t),
+                      np.cos(2 * np.pi * freq * t)], 1)[lo:hi]
+    coef, *_ = np.linalg.lstsq(basis, y[lo:hi].astype(np.float64), rcond=None)
+    resid = y[lo:hi] - basis @ coef
+    return 10 * np.log10(float((basis @ coef).var())
+                         / max(float(resid.var()), 1e-30))
+
+
+#: the resample batch: (source rate, files), every file 10 s of stereo
+RESAMPLE_ROWS = ((48000, 16), (32000, 16), (22050, 16), (44100, 17))
+RESAMPLE_MAX_ABS = 2e-6
+
+
+def _tone_batch(dev, seed: int):
+    """The resample batch on ``dev``: each file a 1 kHz tone (amplitude
+    0.5) plus noise 70 dB under it, zero-padded to the longest file."""
+    from audio_decoder_tpu_torch.core.batch import AudioBatch
+
+    rates = [r for r, n in RESAMPLE_ROWS for _ in range(n)]
+    frames = [int(SECONDS * r) for r in rates]
+    S = max(frames)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pcm = torch.zeros((len(rates), S, 2), dtype=torch.float32, device=dev)
+    for i, (r, n) in enumerate(zip(rates, frames)):
+        t = torch.arange(n, dtype=torch.float64, device=dev) / r
+        tone = (0.5 * torch.sin(2 * np.pi * 1000.0 * t)).to(torch.float32)
+        pcm[i, :n] = tone[:, None] + 1e-4 * torch.randn(
+            (n, 2), generator=gen, device=dev)
+
+    def meta(v):
+        return torch.as_tensor(np.asarray(v, np.int32), device=dev)
+
+    B = len(rates)
+    return AudioBatch.from_pcm(
+        pcm, sample_rate=meta(rates), num_channels=meta([2] * B),
+        bits_per_sample=meta([16] * B), valid_frames=meta(frames),
+        err=meta([0] * B), names=tuple(f"r{i:02d}" for i in range(B)),
+        formats=("wav",) * B)
+
+
+def _on_cpu(batch):
+    import dataclasses
+
+    return dataclasses.replace(batch, **{
+        k: getattr(batch, k).cpu() for k in (
+            "data", "sample_rate", "num_channels", "bits_per_sample",
+            "valid_frames", "err")})
+
+
+def phase_dsp(folder: str, dev, card: str, seed: int) -> None:
+    """Consensus on the mixed folder's batch (its metadata reduced on the
+    card and on the CPU); resample_to_consensus of the
+    four-rate tone batch on the card against the CPU path (max abs 2e-6,
+    amplitude-scaled RMS 5e-7), each tone's SNR above 60 dB, the rows
+    already at the consensus rate bit for bit; per-ratio device ms, patch
+    bytes and rate; route_channels mono→stereo and stereo→mono on the
+    card against the CPU path (1e-6)."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.dsp import resample as R
+
+    batch, _ = adt.decode_dir(folder, device=dev)
+    got = adt.consensus_for(batch, device=dev)
+    want = adt.consensus_for(_on_cpu(batch), device="cpu")
+    if got != want or got != (RATE, 2):
+        fail(f"consensus_for on the card {got}, on the CPU {want}")
+    log(f"consensus of the mixed folder: {got} on the card and the CPU")
+
+    tb = _tone_batch(dev, seed)
+    rate, ch = adt.consensus_for(tb, device=dev)
+    if (rate, ch) != (44100, 2):
+        fail(f"the tone batch's consensus is {(rate, ch)}, want (44100, 2)")
+    t0 = time.perf_counter()
+    adt.resample_to_consensus(tb, rate, device=dev)  # builds the weights
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = adt.resample_to_consensus(tb, rate, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    ref = adt.resample_to_consensus(_on_cpu(tb), rate, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for k in ("sample_rate", "valid_frames", "err", "num_channels"):
+        if not torch.equal(getattr(out, k).cpu(), getattr(ref, k)):
+            fail(f"resample_to_consensus: {k} differs between card and CPU")
+    rates = tb.sample_rate.cpu().numpy()
+    S, C = tb.max_frames, tb.channels
+    total_audio = float(tb.audio_seconds())
+    log(f"resample_to_consensus of {tb.batch_size} files ({total_audio:.1f} "
+        f"audio-s) to {rate} Hz: wall {wall * 1e3:.3f} ms on the card "
+        f"({total_audio / wall:.1f} audio-s/s; the first call, which builds "
+        f"the weights, {cold * 1e3:.3f} ms), peak device memory {peak} B; "
+        f"CPU path {cpu_s:.3f} s  [{card}]")
+    for src, n in RESAMPLE_ROWS:
+        rows = np.nonzero(rates == src)[0]
+        a = out.data[rows].cpu().numpy()
+        b = ref.data[rows].numpy()
+        err = float(np.abs(a - b).max())
+        ok, rms, bar = scaled_rms_ok(b, a)
+        if err > RESAMPLE_MAX_ABS or not ok:
+            fail(f"resample from {src} Hz: card vs CPU max abs {err:.3e}, "
+                 f"rms {rms:.3e} (bar {bar:.3e})")
+        if src == rate:
+            if not torch.equal(out.data[rows, : S * C], tb.data[rows]):
+                fail("rows already at the consensus rate were changed")
+            log(f"resample: the {n} rows at {src} Hz are untouched, bit for "
+                "bit")
+            continue
+        i = int(rows[0])
+        snr = _snr_vs_tone(out.pcm[i, : int(out.valid_frames[i]), 0]
+                           .cpu().numpy(), 1000.0, rate)
+        if snr <= 60.0:
+            fail(f"resample from {src} Hz: tone SNR {snr:.1f} dB <= 60")
+        L, M = R._ratio(src, rate)
+        x = tb.data[torch.as_tensor(rows, device=dev)]
+        ms = cuda_ms(lambda: R._resample_LM_flat(x, L=L, M=M, C=C), 5)
+        # the patches tensor [B, S//M, (M + taps)·C] f32 of the product
+        patch = len(rows) * (S // M) * (M + R._TAPS) * C * 4
+        log(f"resample {src} -> {rate} Hz (L/M {L}/{M}): {n} files, card vs "
+            f"CPU max abs {err:.3e}, rms {rms:.3e} (bar {bar:.3e}); tone SNR "
+            f"{snr:.1f} dB; device {ms:.3f} ms, patches {patch} B, "
+            f"{n * SECONDS / (ms / 1e3):.1f} audio-s/s  [{card}]")
+
+    x = out.pcm[:4]
+    for c_in, c_out in ((1, 2), (2, 1)):
+        src = x[..., :c_in].contiguous()
+        got = adt.route_channels(src, c_out, device=dev)
+        want = adt.route_channels(src.cpu(), c_out, device="cpu")
+        err = float((got.cpu() - want).abs().max())
+        if tuple(got.shape) != tuple(want.shape) or err > 1e-6:
+            fail(f"route_channels {c_in}->{c_out}: card vs CPU max abs {err}")
+        log(f"route_channels {c_in}->{c_out} on {tuple(src.shape)}: card vs "
+            f"CPU max abs {err:.3e}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1131,7 +1545,8 @@ def main() -> None:
     kernels = phase_kernels(dev) + phase_flac_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="adt_smoke_") as folder, \
             tempfile.TemporaryDirectory(prefix="adt_smoke_flac_") as flac_folder, \
-            tempfile.TemporaryDirectory(prefix="adt_smoke_fam_") as fam_folder:
+            tempfile.TemporaryDirectory(prefix="adt_smoke_fam_") as fam_folder, \
+            tempfile.TemporaryDirectory(prefix="adt_smoke_stream_") as st_folder:
         wavs = write_folder(folder, args.seed)
         launches, _ = phase_main_path(folder, wavs, dev)
         good = write_flac_folder(flac_folder, args.seed)
@@ -1142,11 +1557,28 @@ def main() -> None:
         k2_families = phase_families(fam_folder, src, dev)
         k2_shapes = phase_families_k2(dev, src)
         phase_families_rate(fam_folder, card, dev)
+        t0 = time.perf_counter()
+        stream_paths = write_stream_files(st_folder, args.seed)
+        stream_launches = phase_streams(stream_paths, dev, card)
+        k1_streams, k2_streams, k34_streams = phase_stream_kernels(
+            stream_paths, dev)
+        t1 = time.perf_counter()
+        phase_dsp(folder, dev, card, args.seed)
+        log(f"streams phases {t1 - t0:.3f} s, DSP phase "
+            f"{time.perf_counter() - t1:.3f} s")
         if args.profile:
             phase_profile(flac_folder, card)
             phase_families_profile(fam_folder, card, dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        # the streams: each kernel's launches over the stream_file runs
+        # that launch it (each run counted on its own), and the kernel at
+        # the streams' chunk shapes
+        per = stream_launches[k["name"]]
+        k["streams"] = dict(launches=sum(per.values()), per_stream=per,
+                            shapes={"mp3_entropy_scan": k1_streams,
+                                    "mp3_polyphase_synthesis": k2_streams,
+                                    **k34_streams}[k["name"]])
         if k["name"] == "mp3_polyphase_synthesis":
             # the Layer I/II path: its launches per decode_dir of the
             # families folder, and K2 at its shapes

@@ -711,3 +711,256 @@ def test_flac_chunked_route_cuda_matches_cpu(cuda_device, monkeypatch):
     assert int(gpu.err[0]) == 0 and int(cpu.err[0]) == 0
     assert np.array_equal(gpu.file(0).pcm, cpu.file(0).pcm)
     assert int(gpu.valid_frames[0]) == int(cpu.valid_frames[0]) == 441000
+
+
+# ---------------------------------------------------------------------------
+# The streams and the batch DSP on the card
+# ---------------------------------------------------------------------------
+
+
+def _cat(chunks) -> np.ndarray:
+    return np.concatenate(list(chunks))
+
+
+def _oneshot(path: str, dev) -> np.ndarray:
+    f = decode_paths([path], device=dev).file(0)
+    assert f.err == 0
+    return f.pcm[:, : f.num_channels]
+
+
+def _assert_rms(ref, got):
+    assert ref.shape == got.shape
+    rms = float(np.sqrt(((ref - got) ** 2).mean()))
+    bar = 5e-7 * max(1.0, float(np.sqrt((ref ** 2).mean())) / 0.2)
+    assert rms < bar, (rms, bar)
+
+
+@pytest.mark.parametrize("path", FIXTURES, ids=["stereo", "lsf"])
+def test_mp3_stream_cuda_equals_the_oneshot_decode(cuda_device, path):
+    """Mp3Stream on the card: one K1 and one K2 launch per chunk, chunks
+    equal to the card's one-shot decode bit for bit (also from seeks), and
+    within the RMS bar of the CPU stream."""
+    blob = open(path, "rb").read()
+    one = _oneshot(path, cuda_device)
+    st = D.Mp3Stream(blob, granules_per_chunk=64, device=cuda_device)
+    k1, k2 = HK.launches, SK.launches
+    got = _cat(st)
+    n_chunks = -(-st.n_granules // 64)
+    assert (HK.launches - k1, SK.launches - k2) == (n_chunks, n_chunks)
+    assert np.array_equal(got, one)
+    for s in (577, st.total_samples // 2 + 11):
+        assert np.array_equal(_cat(st.chunks(start_sample=s)), one[s:])
+    _assert_rms(_cat(D.Mp3Stream(blob, granules_per_chunk=64, device="cpu")),
+                got)
+
+
+def test_imdct_product_rows_do_not_depend_on_the_row_count_on_the_card(
+        cuda_device):
+    """cuBLAS rounds a product of few rows unlike a large one; the fixed-row
+    IMDCT product gives every row the same result at any row count."""
+    from audio_decoder_tpu_torch.codecs.mpeg import dsp
+
+    R = dsp._MM_ROWS
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    a = torch.randn((2 * R + 5, 18), device=cuda_device, generator=g)
+    w = dsp._consts(cuda_device)["w_all"][2].t()
+    whole = dsp._fixed_rows_mm(a, w)
+    for m in (32, 2112, 3232, 32896, R - 1, R, R + 1):
+        assert torch.equal(dsp._fixed_rows_mm(a[:m], w), whole[:m]), m
+    torch.testing.assert_close(whole, a @ w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layer", [1, 2])
+def test_l12_stream_cuda_equals_the_oneshot_decode(cuda_device, tmp_path,
+                                                   layer):
+    from .seeded_writers import layer1_frames, layer2_frames
+
+    rng = np.random.default_rng(40 + layer)
+    blob = (layer1_frames(rng, 60, 2) if layer == 1
+            else layer2_frames(rng, 40, 2, sr=48000, kbps=256))
+    path = tmp_path / f"x.mp{layer}"
+    path.write_bytes(blob)
+    one = _oneshot(str(path), cuda_device)
+    st = D.L12Stream(blob, frames_per_chunk=8, device=cuda_device)
+    before = SK.launches
+    got = _cat(st)
+    assert SK.launches - before == -(-st.n_frames // 8)
+    assert np.array_equal(got, one)
+    s = 5 * st.spf * 32 + 3
+    assert np.array_equal(_cat(st.chunks(start_sample=s)), one[s:])
+    _assert_rms(_cat(D.L12Stream(blob, frames_per_chunk=8, device="cpu")),
+                got)
+
+
+def _pcm_stream_files() -> dict:
+    """{name: (bytes, extension)}: a WAV, an AIFF 24-bit, an AIFF-C sowt, a
+    µ-law AU, a float CAF and the three ADPCM kinds, 3,000 frames each."""
+    from . import ima_ref as IR
+    from . import ms_ref as MR
+    from .seeded_writers import ima_wav, ms_wav
+    from .synth import make_aiff, make_au, make_caf, make_wav
+
+    rng = np.random.default_rng(0x57)
+    n = 3000
+    pcm = rng.integers(-30000, 30000, size=(n, 2)).astype(np.int16)
+    z = np.zeros((0, 2), np.int64)
+    return {
+        "wav16": (make_wav(pcm.astype(np.int64), 44100, 16), "wav"),
+        "aiff24": (make_aiff(rng.integers(-(1 << 23), 1 << 23, size=(n, 2)),
+                             48000, 24), "aif"),
+        "sowt": (make_aiff(pcm.astype(np.int64), 44100, 16,
+                           compression=b"sowt"), "aifc"),
+        "ulaw": (make_au(np.zeros((0, 1), np.int64), 8000, 1,
+                         data_override=rng.integers(0, 256, n).astype(
+                             np.uint8).tobytes()), "au"),
+        "caf_f32": (make_caf(np.clip(rng.standard_normal((n, 2)) * 0.3, -1, 1),
+                             44100, bits=32, little=True, float_=True), "caf"),
+        "ima": (ima_wav(IR.encode(pcm, 512), 2, 512), "wav"),
+        "ms": (ms_wav(MR.encode(pcm, 512), 2, 512), "wav"),
+        "ima4": (make_aiff(z, 44100, 16, compression=b"ima4",
+                           data_override=IR.encode_ima4(pcm),
+                           frames_override=n // 64 * 64), "aifc"),
+    }
+
+
+PCM_STREAM_FILES = ("wav16", "aiff24", "sowt", "ulaw", "caf_f32", "ima", "ms",
+                    "ima4")
+
+
+@pytest.mark.parametrize("name", PCM_STREAM_FILES)
+def test_pcm_stream_cuda_equals_the_oneshot_decode(cuda_device, tmp_path,
+                                                   name):
+    from audio_decoder_tpu_torch.codecs.pcm_stream import PcmStream
+
+    blob, ext = _pcm_stream_files()[name]
+    path = tmp_path / f"x.{ext}"
+    path.write_bytes(blob)
+    one = _oneshot(str(path), cuda_device)
+    st = PcmStream(str(path), frames_per_chunk=500, device=cuda_device)
+    got = _cat(st)
+    assert np.array_equal(got, one)
+    assert np.array_equal(got, _cat(PcmStream(str(path), frames_per_chunk=500,
+                                              device="cpu")))
+    s = 777
+    assert np.array_equal(_cat(st.chunks(start_sample=s)), one[s:])
+
+
+def test_flac_stream_file_cuda_equals_the_oneshot_decode(cuda_device):
+    from audio_decoder_tpu_torch import stream_file
+
+    path = FLAC_FIXTURES[0]
+    before = dict(PW.launches)
+    got = _cat(stream_file(path, flac_frames_per_chunk=16, device=cuda_device))
+    for k in ("window_add", "window_add2"):  # once per chunk of 108 frames
+        assert PW.launches[k] - before[k] == -(-108 // 16)
+    one = _oneshot(path, cuda_device)
+    assert np.array_equal(got, one)
+    assert np.array_equal(got, _oneshot(path, "cpu"))
+    s = 4096 * 20 + 5
+    assert np.array_equal(_cat(stream_file(path, start_sample=s,
+                                           device=cuda_device)), one[s:])
+
+
+def test_stream_decode_and_decode_all_cuda(cuda_device, tmp_path):
+    from audio_decoder_tpu_torch import stream_decode
+    from audio_decoder_tpu_torch.io.stream import decode_all
+
+    paths = list(FIXTURES) + [FLAC_FIXTURES[1]]
+    for name in ("wav16", "ima", "caf_f32"):
+        blob, ext = _pcm_stream_files()[name]
+        (tmp_path / f"{name}.{ext}").write_bytes(blob)
+        paths.append(str(tmp_path / f"{name}.{ext}"))
+    whole = decode_paths(paths, device=cuda_device)
+    for chunk, batch in stream_decode(paths, files_per_batch=2,
+                                      device=cuda_device):
+        assert batch.data.device.type == "cuda"
+        ref = decode_paths(chunk, device=cuda_device)
+        assert batch.names == ref.names and torch.equal(batch.data, ref.data)
+    got = decode_all(paths, files_per_batch=2, device=cuda_device)
+    assert got.names == whole.names and torch.equal(got.data, whole.data)
+    assert torch.equal(got.valid_frames, whole.valid_frames)
+    empty = decode_all([], device=cuda_device)
+    assert empty.data.device.type == "cuda" and empty.batch_size == 0
+
+
+def test_stream_file_raises_on_a_device_that_does_not_exist(cuda_device):
+    from audio_decoder_tpu_torch import stream_file
+    from audio_decoder_tpu_torch.codecs.pcm_stream import PcmStream
+
+    bad = f"cuda:{torch.cuda.device_count()}"
+    with pytest.raises(RuntimeError, match="CUDA devices exist"):
+        list(stream_file(FIXTURES[1], device=bad))
+    with pytest.raises(RuntimeError, match="CUDA devices exist"):
+        PcmStream(_pcm_stream_files()["wav16"][0], device=bad)
+
+
+@pytest.mark.parametrize("length", ["floor", "exact"])
+def test_resample_to_consensus_cuda_matches_cpu(cuda_device, length):
+    """Four source rates to 44.1 kHz on the card against the CPU path: the
+    metadata exact, the PCM within max abs 2e-6 and the RMS bar, the row
+    already at 44.1 kHz bit for bit; consensus and routing as on the CPU."""
+    import dataclasses
+
+    from audio_decoder_tpu_torch import (consensus_for, resample_to_consensus,
+                                         route_channels)
+    from audio_decoder_tpu_torch.core.batch import AudioBatch
+
+    rates = [48000, 44100, 32000, 22050, 44100]
+    frames = [r // 2 for r in rates]
+    rng = np.random.default_rng(9)
+    pcm = np.zeros((len(rates), max(frames), 2), np.float32)
+    for i, (r, n) in enumerate(zip(rates, frames)):
+        t = np.arange(n) / r
+        pcm[i, :n] = (0.5 * np.sin(2 * np.pi * 1000 * t)[:, None]
+                      + 1e-4 * rng.standard_normal((n, 2)))
+    meta = dict(sample_rate=rates, num_channels=[2] * 5,
+                bits_per_sample=[16] * 5, valid_frames=frames, err=[0] * 5)
+    cpu = AudioBatch.from_pcm(torch.as_tensor(pcm), **{
+        k: torch.as_tensor(np.asarray(v, np.int32)) for k, v in meta.items()})
+    gpu = dataclasses.replace(cpu, **{
+        k: getattr(cpu, k).to(cuda_device) for k in ("data", *meta)})
+    assert consensus_for(gpu, device=cuda_device) == consensus_for(
+        cpu, device="cpu") == (44100, 2)
+    a = resample_to_consensus(gpu, 44100, length=length, device=cuda_device)
+    b = resample_to_consensus(cpu, 44100, length=length, device="cpu")
+    assert a.data.device.type == "cuda"
+    for k in meta:
+        assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+    got, ref = a.data.cpu().numpy(), b.data.numpy()
+    assert float(np.abs(got - ref).max()) <= 2e-6
+    _assert_rms(ref, got)
+    assert torch.equal(a.data[1, : pcm.shape[1] * 2], gpu.data[1])
+    for c_in, c_out in ((1, 2), (2, 1)):
+        x = a.pcm[:, :, :c_in].contiguous()
+        r = route_channels(x, c_out, device=cuda_device)
+        assert r.device.type == "cuda"
+        assert float((r.cpu() - route_channels(x.cpu(), c_out, device="cpu"))
+                     .abs().max()) <= 1e-6
+
+
+def test_entropy_kernel_on_a_stream_chunk_cut_at_its_last_byte(cuda_device):
+    """The last chunk of an Mp3Stream with its main_data row cut where its
+    farthest-reaching lane ends, so that lane ends on the row's last byte;
+    then with some lanes stretched past the 544-byte staging slot (read
+    from global memory): the kernel equals its twin every time."""
+    st = D.Mp3Stream(open(FIXTURES[0], "rb").read(), granules_per_chunk=64,
+                     device=cuda_device)
+    a = (st.n_granules - 1) // 64 * 64
+    args = D.fused_wire_args(st.chunk_wire(a - st.WARMUP, st.n_granules),
+                             st._rate_idx, cuda_device)
+    lanes = dsp.wire_lane_args(*args[1:10], args[15], args[12])[:10]
+    valid = lanes[9] > 0
+    reach = int(torch.maximum(lanes[2], lanes[3])[valid].max())
+    main = args[0][:, : -(-reach // 8)].contiguous()
+    assert main.shape[1] < args[0].shape[1]
+    _cnt, nb, nc = st._buckets[0]
+    for stretch in (False, True):
+        if stretch:
+            lanes = [t.clone() for t in lanes]
+            idx = torch.nonzero(valid).flatten()[::7]
+            lanes[2][idx] += 5000
+            lanes[3][idx] += 5000
+        got = HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc)
+        ref = HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
