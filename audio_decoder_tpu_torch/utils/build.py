@@ -59,13 +59,16 @@ def _digest(paths: list[str], cmd: list[str]) -> str:
 
 def build_shared(name: str, compiler: str, flags: list[str],
                  sources: list[str], deps: tuple[str, ...] = (),
-                 include_dirs: tuple[str, ...] = ()) -> str:
+                 include_dirs: tuple[str, ...] = (),
+                 libs: tuple[str, ...] = ()) -> str:
     """Compile ``sources`` into ``build/lib<name>-<hash>.so``; return its path.
 
     The hash covers the command and the contents of ``sources`` and
-    ``deps`` (headers found through ``include_dirs``)."""
+    ``deps`` (headers found through ``include_dirs``); ``libs`` (such as
+    ``-ldl``) follow the sources on the command line."""
     cmd = [compiler] + flags
-    out = os.path.join(BUILD_DIR, f"lib{name}-{_digest(sources + list(deps), cmd)}.so")
+    digest = _digest(sources + list(deps), cmd + list(libs))
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     cmd = cmd + [f"-I{d}" for d in include_dirs]
     if os.path.exists(out):
         BUILD_SECONDS.setdefault(name, 0.0)
@@ -74,7 +77,8 @@ def build_shared(name: str, compiler: str, flags: list[str],
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd + ["-o", tmp] + sources, capture_output=True,
+        proc = subprocess.run(cmd + ["-o", tmp] + sources + list(libs),
+                              capture_output=True,
                               text=True, timeout=600)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise BuildError(f"building {name}: {e}") from e

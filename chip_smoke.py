@@ -75,7 +75,29 @@ Phases:
      48,000, 32,000 and 22,050 Hz plus 17 at 44,100 Hz against the CPU path
      (max abs 2e-6, amplitude-scaled RMS 5e-7), each tone above 60 dB SNR,
      the 44.1 kHz rows bit for bit, with each ratio's device ms and patch
-     bytes; ``route_channels`` mono→stereo and stereo→mono against the CPU.
+     bytes; ``route_channels`` mono→stereo and stereo→mono against the CPU;
+ 11. the engine through its CLI: an asset folder of the mixed folder's 16
+     WAV and 16 MP3 and the LSF MP3, 4 copies of the FLAC fixture and 2
+     Layer II files (~135 MB of f32 tracks), rendered by ``cli render
+     --resample`` (the live loop at PERIOD 128, SPEC_DEPTH 8) from a
+     seeded script that uses every verb; K1-K4's launches in its decode
+     are counted alone and must be exactly the folder's groups' (K1 and K2
+     as the main path's MP3 files, one more K2 for the Layer II group, one
+     K4 and one K3 for the FLAC group); each of those calls' inputs is kept
+     and K1-K4 are held against their twins on them (K1, K3, K4 exactly,
+     K2 within atol 1e-4 / rtol 1e-5) and timed; the written WAV must equal
+     the captured int16 blocks, and the same script with ``--platform
+     cpu`` must agree within 1 LSB (the share that differs is printed);
+ 12. bench.py's render configuration on the card (8 stereo tracks of 2 s,
+     all 64 voices used and active, every third voice reversed, gain
+     1/64, blocks of 4,096 frames, chains of 64): ``render_chain`` must
+     equal sequential ``render_block`` bit for bit, ``EngineLoop`` at
+     SPEC_DEPTH 8 must equal SPEC_DEPTH 0 over a command script, and a
+     checkpoint saved halfway must continue sample-exact; prints the
+     render's × real time (best of 5 chains after a warm one, one fetch a
+     chain), the live loop's × real time at PERIOD 128, the device
+     operations, kernel launch calls and device ms per block (torch
+     profiler), the chain's peak device memory and the sink's kind.
 
 With ``--profile`` it then profiles one decode of the 16 FLAC files with
 torch.profiler and prints each FLAC stage's host and device time (the
@@ -84,7 +106,10 @@ families folder (stage spans ``pcm.*``, ``adpcm.*``, ``l12.*``; table in
 chiprun_out/families_profile.txt) and each ADPCM kind's scan alone with
 its kernel launches.
 
-Every phase is fatal.  The last line of standard output is
+Every phase is fatal.  The kernels line gives each kernel's launches on
+the main path, the streams (``streams``), the Layer I/II path
+(``layer12``) and the engine's decode (``engine``).  The last line of
+standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
 its power limit, and the line before that lists the kernels.
 
@@ -95,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import os
 import shutil
@@ -249,12 +275,13 @@ def phase_build() -> None:
     from audio_decoder_tpu_torch.codecs.flac import native as flac_native
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel, native
     from audio_decoder_tpu_torch.ops import synth_kernel, window_add
+    from audio_decoder_tpu_torch.runtime import native as runtime_native
     from audio_decoder_tpu_torch.utils import build
 
     t0 = time.perf_counter()
     loaders = (huffman_kernel.load_library, synth_kernel.load_library,
                window_add.load_library, window_add.load_library2, native._load,
-               flac_native._load)
+               flac_native._load, runtime_native.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(fn) for fn in loaders]:
             f.result()  # a BuildError carries the compiler's output
@@ -1185,6 +1212,28 @@ STREAM_KERNELS = {
 }
 
 
+def _zero_kernel_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import synth_kernel as SK
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    HK.launches = 0
+    SK.launches = 0
+    for k in PW.launches:
+        PW.launches[k] = 0
+
+
+def _kernel_counts() -> dict:
+    """{kernel: launches since the counts were last set to 0}."""
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import synth_kernel as SK
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    return {"mp3_entropy_scan": HK.launches, "mp3_polyphase_synthesis": SK.launches,
+            **PW.launches}
+
+
 def _counted_stream(kind: str, path: str, dev, start_sample: int = 0):
     """One ``stream_file(device="cuda")`` run with every launch count set
     to 0 just before it and read just after it: (chunks, seconds to the
@@ -1192,14 +1241,8 @@ def _counted_stream(kind: str, path: str, dev, start_sample: int = 0):
     kernel of ``STREAM_KERNELS[kind]`` launched once per chunk and no
     other kernel launched."""
     import audio_decoder_tpu_torch as adt
-    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
-    from audio_decoder_tpu_torch.ops import synth_kernel as SK
-    from audio_decoder_tpu_torch.ops import window_add as PW
 
-    for k in PW.launches:
-        PW.launches[k] = 0
-    HK.launches = 0
-    SK.launches = 0
+    _zero_kernel_counts()
     chunks, first = [], None
     t0 = time.perf_counter()
     for c in adt.stream_file(path, start_sample=start_sample, device=dev):
@@ -1207,8 +1250,7 @@ def _counted_stream(kind: str, path: str, dev, start_sample: int = 0):
             first = time.perf_counter() - t0
         chunks.append(c)
     wall = time.perf_counter() - t0
-    counts = {"mp3_entropy_scan": HK.launches,
-              "mp3_polyphase_synthesis": SK.launches, **PW.launches}
+    counts = _kernel_counts()
     want = {k: len(chunks) if k in STREAM_KERNELS.get(kind, ()) else 0
             for k in counts}
     if counts != want:
@@ -1274,6 +1316,29 @@ def phase_streams(paths: dict, dev, card: str) -> dict:
     return per_kernel
 
 
+def _k1_timed(label: str, main, lanes, nb: int, nc: int) -> dict:
+    """K1 against the plain scan on one bucket's inputs exactly, timed
+    beside it with its bytes bound."""
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+
+    got = HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc)
+    ref = HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc)
+    for name, g, r in zip(("big576", "c1", "fail"), got, ref):
+        if not torch.equal(g, r):
+            fail(f"K1 {name} at the {label} differs from the plain scan in "
+                 f"{int((g != r).sum())} entries")
+    ms = cuda_ms(lambda: HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc), 50)
+    plain_ms = cuda_ms(lambda: HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc), 2)
+    b_ms, by = bound(nbytes(main, *lanes, *got))
+    log(f"K1 at the {label}: main_u8 {tuple(main.shape)}, "
+        f"{lanes[0].shape[0]} lanes, n_big {nb}: exact; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return dict(shape=[int(lanes[0].shape[0]), int(main.shape[1])],
+                max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by)
+
+
 def _k2_timed(label: str, ts, c) -> dict:
     """K2 against its plain twin on ``ts`` (within atol 1e-4 / rtol 1e-5),
     timed beside it with its bytes/operations bound."""
@@ -1337,8 +1402,6 @@ def phase_stream_kernels(paths: dict, dev) -> tuple[list, list, dict]:
     from audio_decoder_tpu_torch.codecs.flac.stream import FlacStream
     from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
     from audio_decoder_tpu_torch.codecs.mpeg import dsp
-    from audio_decoder_tpu_torch.codecs.mpeg import huffman_device as HD
-    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
     from audio_decoder_tpu_torch.codecs.mpeg import layer12 as L12
 
     st = D.Mp3Stream(open(paths["mp3"], "rb").read(), device=dev)
@@ -1346,21 +1409,7 @@ def phase_stream_kernels(paths: dict, dev) -> tuple[list, list, dict]:
     args = D.fused_wire_args(st.chunk_wire(lo, hi), st._rate_idx, dev)
     main, parts = _scan_inputs(args, None, st._buckets)
     (lanes, nb, nc), = parts
-    got = HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc)
-    ref = HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc)
-    for name, g, r in zip(("big576", "c1", "fail"), got, ref):
-        if not torch.equal(g, r):
-            fail(f"K1 {name} at the Mp3Stream chunk differs from the plain "
-                 f"scan in {int((g != r).sum())} entries")
-    ms = cuda_ms(lambda: HK.entropy_scan(main, *lanes, n_big=nb, n_c1=nc), 50)
-    plain_ms = cuda_ms(lambda: HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc), 2)
-    b_ms, by = bound(nbytes(main, *lanes, *got))
-    log(f"K1 at the Mp3Stream chunk: main_u8 {tuple(main.shape)}, "
-        f"{lanes[0].shape[0]} lanes, n_big {nb}: exact; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
-    k1 = [dict(shape=[int(lanes[0].shape[0]), int(main.shape[1])],
-               max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=by)]
+    k1 = [_k1_timed("Mp3Stream chunk", main, lanes, nb, nc)]
 
     c = dsp._consts(dev)
     TS = dsp.fused_subband_samples(*args, None, channels=st.channels,
@@ -1531,6 +1580,368 @@ def phase_dsp(folder: str, dev, card: str, seed: int) -> None:
             f"CPU max abs {err:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# The engine: CLI render of an asset folder, and bench.py's render config
+# ---------------------------------------------------------------------------
+
+#: bench.py's render configuration: tracks, their seconds, chain depth,
+#: frames per block (bench.py:641-661)
+RENDER_TRACKS, RENDER_TRACK_S, RENDER_DEPTH, RENDER_FRAMES = 8, 2, 64, 4096
+N_ENGINE_FLAC, N_ENGINE_L2 = 4, 2
+
+
+def write_engine_folder(folder: str, mixed: str, layer2: bytes) -> list:
+    """The engine's asset folder: the mixed folder's 16 WAV and 16 MP3 and
+    the LSF MP3, 4 copies of the FLAC fixture, 2 Layer II files; returns
+    the track names."""
+    for name in sorted(os.listdir(mixed)):
+        if name.endswith(".mp3") or (name.startswith("w") and name.endswith(".wav")):
+            shutil.copyfile(os.path.join(mixed, name), os.path.join(folder, name))
+    for i in range(N_ENGINE_FLAC):
+        shutil.copyfile(MUSIC_FLAC, os.path.join(folder, f"f{i}.flac"))
+    for i in range(N_ENGINE_L2):
+        with open(os.path.join(folder, f"l2_{i}.mp2"), "wb") as f:
+            f.write(layer2)
+    return sorted(os.path.splitext(n)[0] for n in os.listdir(folder))
+
+
+def engine_script(names: list, seed: int) -> str:
+    """A seeded command script over the folder's tracks that uses every
+    verb (load, start, velocity ±, group, tc, seq with chance and jitter,
+    trem, env, pause/resume, stop, unload), with ``@<s>`` time steps."""
+    rng = np.random.default_rng(seed + 5)
+    wav = [n for n in names if n.startswith("w")]
+    mp3 = [n for n in names if n.startswith("m")]
+    lines = ["tc beat b:%d" % rng.integers(100, 160)]
+    lines += [f"load {n}" for n in wav[:12] + mp3[:12]]
+    lines += [f"load {n} -t s:{rng.integers(3000, 9000)}"
+              for n in ("w12", "m12", "f0", "lsf", "l2_0")]
+    lines += ["load f1 -t c:beat", "load f2", "load l2_1",
+              "group bed -v " + ",".join(wav[:12] + mp3[:12]),
+              "group kit -v f2,l2_1 -t m:%d" % rng.integers(150, 400)]
+    for n in wav[:12] + mp3[:12]:
+        lines.append(f"velocity {n} {rng.choice([-1, 1]) * rng.uniform(0.5, 1.6):.3f}")
+    lines += [
+        f"seq w12 -p 8 -s 0,2,3,5,7 -c a:{rng.uniform(0.5, 0.9):.2f},3:0.4 "
+        f"-j a:{rng.uniform(0.1, 0.6):.2f}",
+        f"seq kit -p 4 -s 0,1,3 -c a:{rng.uniform(0.4, 0.9):.2f} -j 1:0.5",
+        "seq f1 -p 2 -s 0 -c a:0.9", "trem m12 -p 4 -d 0.6",
+        "env f0 -p 2 -d 0.9", "trem bed -t s:20000 -p 3 -d 0.3",
+        f"velocity lsf {-rng.uniform(0.5, 1.0):.3f}", "velocity l2_0 1.5",
+        "start -t beat", "start -g bed", "start -v w12", "start -v m12",
+        "start -v f0", "start -v f1", "@0.5", "start -g kit", "start -v lsf",
+        "start -v l2_0", "@1.0", "velocity w12 -1.25", "pause -g bed",
+        "@0.5", "resume -g bed", "stop -v f0", "pause -v m12", "@0.5",
+        "resume -v m12", "unload lsf", "load lsf -t s:7000",
+        "seq lsf -p 2 -s 0 -c a:0.9", "start -v lsf", "@1.0", "stop -g kit",
+        "pause -t beat", "@0.5", "resume -t beat", "@0.5"]
+    return "\n".join(lines) + "\n"
+
+
+def _render_cli(folder: str, script: str, out: str, platform: str):
+    """``cli render --resample`` of the script: (args, wall seconds).  The
+    card is the CLI's default, so only the CPU run names a platform."""
+    from audio_decoder_tpu_torch import cli
+
+    argv = ["render", "--assets", folder, "--script", script, "--resample",
+            "--out", out]
+    args = cli.parse_args(([] if platform == "cuda" else
+                           ["--platform", platform]) + argv)
+    if args.platform != platform:
+        fail(f"cli render runs on {args.platform}, not {platform}")
+    t0 = time.perf_counter()
+    if args.fn(args) != 0:
+        fail(f"cli render --platform {platform} returned non-zero")
+    return args, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _captured_kernel_inputs():
+    """Inside the block every call of a K1-K4 wrapper first keeps a copy of
+    its inputs: yields {kernel: [(args, kwargs), ...]}.  K1 and K2 are
+    looked up in their modules at each call, K3 and K4 where the FLAC
+    device program bound them; the wrappers are restored after."""
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import synth_kernel as SK
+
+    seen: dict = {}
+    slots = [(HK, "entropy_scan", "mp3_entropy_scan"),
+             (SK, "polyphase_synthesis_blocks", "mp3_polyphase_synthesis"),
+             (FV, "window_add2", "window_add2"),
+             (FV, "window_add", "window_add")]
+    saved = [getattr(mod, attr) for mod, attr, _ in slots]
+
+    def keeping(fn, key):
+        def call(*args, **kw):
+            seen.setdefault(key, []).append(
+                (tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
+            return fn(*args, **kw)
+        return call
+
+    for (mod, attr, key), fn in zip(slots, saved):
+        setattr(mod, attr, keeping(fn, key))
+    try:
+        yield seen
+    finally:
+        for (mod, attr, _), fn in zip(slots, saved):
+            setattr(mod, attr, fn)
+
+
+def phase_engine_kernels(seen: dict) -> dict:
+    """K1-K4 against their twins on the very inputs the engine's decode gave
+    them (``_captured_kernel_inputs``), each call timed beside its twin:
+    K1 per bucket exactly, K2 per group within atol 1e-4 / rtol 1e-5, K4
+    and K3 on the FLAC group exactly.  Returns {kernel: [shape entries]}."""
+    out: dict = {}
+    for i, (args, kw) in enumerate(seen.get("mp3_entropy_scan", [])):
+        out.setdefault("mp3_entropy_scan", []).append(_k1_timed(
+            f"engine decode's K1 call {i}", args[0], args[1:], kw["n_big"],
+            kw["n_c1"]))
+    for i, ((ts, n_mat, g2), _kw) in enumerate(
+            seen.get("mp3_polyphase_synthesis", [])):
+        out.setdefault("mp3_polyphase_synthesis", []).append(_k2_timed(
+            f"engine decode's K2 call {i}", ts, {"synth_n": n_mat, "g2": g2}))
+    for name in ("window_add2", "window_add"):
+        for i, (args, _kw) in enumerate(seen.get(name, [])):
+            out.setdefault(name, []).append(_window_timed(
+                f"engine decode's call {i}", name, args[:-1], args[-1]))
+    return out
+
+
+def phase_engine_cli(folder: str, work: str, names: list, card: str,
+                     seed: int, main_launches: dict) -> tuple[dict, dict]:
+    """``python -m audio_decoder_tpu_torch.cli render --resample`` over the
+    engine folder on the card (K1-K4 run in its decode; their launches are
+    counted alone and must be the folder's groups' exactly, and each call's
+    inputs are kept and the kernels held against their twins on them), the
+    written WAV against the captured int16 blocks, then the same script
+    with ``--platform cpu``: the card within 1 LSB of the CPU.  The script
+    and the WAVs go to ``work``.  Returns the kernels' launches and their
+    shape entries."""
+    import audio_decoder_tpu_torch as adt
+
+    script = os.path.join(work, "script.txt")
+    with open(script, "w") as f:
+        f.write(engine_script(names, seed))
+    _zero_kernel_counts()
+    with _captured_kernel_inputs() as seen:
+        args, wall = _render_cli(folder, script, os.path.join(work, "cuda.wav"),
+                                 "cuda")
+        torch.cuda.synchronize()
+    launches = _kernel_counts()
+    log(f"engine: cli render on the card launched {launches} in its decode "
+        f"({wall:.3f} s wall for decode, resample and "
+        f"{args.pcm.shape[0] / RATE:.3f} s of audio)  [{card}]")
+    # the folder's MP3 files are the main path's own (the stereo group's
+    # buckets and the LSF group), its 2 Layer II files one more K2 group,
+    # its 4 FLAC copies one group for K4 and K3
+    want = {"mp3_entropy_scan": main_launches["mp3_entropy_scan"],
+            "mp3_polyphase_synthesis":
+                main_launches["mp3_polyphase_synthesis"] + 1,
+            "window_add2": 1, "window_add": 1}
+    calls = {k: len(seen.get(k, [])) for k in want}
+    if launches != want or calls != want:
+        fail(f"the engine's decode launched {launches} in {calls} wrapper "
+             f"calls, want {want}")
+    shapes = phase_engine_kernels(seen)
+    del seen
+    got = adt.decode_paths([args.out], device="cuda").file(0)
+    want = args.pcm.astype(np.float32) / np.float32(32768.0)
+    if got.err or got.pcm.shape != want.shape or not np.array_equal(got.pcm, want):
+        fail("the written WAV differs from the captured int16 blocks")
+    if np.abs(args.pcm).max() < 1000:
+        fail("the engine render is (nearly) silent")
+    cpu_args, cpu_wall = _render_cli(folder, script, os.path.join(work, "cpu.wav"),
+                                     "cpu")
+    if args.pcm.shape != cpu_args.pcm.shape:
+        fail(f"engine render shapes differ: card {args.pcm.shape}, "
+             f"CPU {cpu_args.pcm.shape}")
+    d = np.abs(args.pcm.astype(np.int32) - cpu_args.pcm.astype(np.int32))
+    log(f"engine: the WAV equals the captured blocks; card vs CPU render "
+        f"max {int(d.max())} LSB, {float((d > 0).mean()):.3e} of the "
+        f"{d.size} samples differ (CPU path {cpu_wall:.3f} s)")
+    if d.max() > 1:
+        fail(f"the card's render differs from the CPU's by {int(d.max())} LSB")
+    return launches, shapes
+
+
+def render_config(dev, seed: int = 11):
+    """bench.py's render configuration on ``dev``: 8 stereo tracks of 2 s
+    (random, from the seed), all 64 voices used and active at random
+    positions, velocities 0.25-2 with every third voice reversed, gain
+    1/64."""
+    import dataclasses
+
+    from audio_decoder_tpu_torch.engine import state as ES
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = RATE * RENDER_TRACK_S
+    tracks = torch.randn((RENDER_TRACKS, S, 2), generator=g, device=dev) * 0.1
+    st = ES.empty_state(tracks, [S] * RENDER_TRACKS, [2] * RENDER_TRACKS,
+                        out_channels=2, device=dev)
+    V = ES.MAX_VOICES
+    pos = 1000.0 + (S - 2000.0) * torch.rand(V, generator=g, device=dev)
+    sign = torch.where(torch.arange(V, device=dev) % 3 == 0, -1.0, 1.0)
+    vel = sign * (0.25 + 1.75 * torch.rand(V, generator=g, device=dev))
+    used = torch.ones(V, dtype=torch.bool, device=dev)
+    st = dataclasses.replace(
+        st, v_used=used, v_active=used,
+        v_track=(torch.arange(V, device=dev) % RENDER_TRACKS).to(torch.int32),
+        v_pos=pos, v_vel=vel, v_gain=torch.full((V,), 1.0 / 64, device=dev))
+    return st, ES.HostRegistry([f"t{i}" for i in range(RENDER_TRACKS)])
+
+
+#: commands over the render configuration for the loop's equality runs:
+#: (line, blocks rendered after it)
+ENGINE_LOOP_SCRIPT = [("load t0 -t s:3000", 0), ("seq t0 -p 4 -s 0,1,3 -c a:0.7 -j a:0.5", 0),
+               ("start -v t0", 40), ("tc beat b:180", 0), ("load t1 -t c:beat", 0),
+               ("trem t1 -p 2 -d 0.5", 0), ("start -t beat", 0), ("start -v t1", 70),
+               ("velocity t1 -1.5", 33), ("group g -v t0,t1", 0), ("pause -g g", 25),
+               ("resume -g g", 90), ("env t0 -p 2 -d 0.8", 64), ("stop -v t1", 50)]
+
+
+def _loop_run(dev, depth: int, checkpoint: str | None = None):
+    """The loop over the render configuration at ``SPEC_DEPTH`` ``depth``:
+    the collected blocks (and a checkpoint halfway, if asked)."""
+    from audio_decoder_tpu_torch.engine.checkpoint import save_state
+    from audio_decoder_tpu_torch.runtime import loop as LM
+    from audio_decoder_tpu_torch.runtime.native import Sink
+
+    saved, LM.SPEC_DEPTH = LM.SPEC_DEPTH, depth
+    try:
+        st, reg = render_config(dev)
+        loop = LM.EngineLoop(st, reg, RATE, 2,
+                             sink=Sink("default", RATE, 2, realtime=False))
+        out = []
+        for i, (line, n) in enumerate(ENGINE_LOOP_SCRIPT):
+            if not loop.submit(line):
+                fail(f"loop command {line!r} rejected: {loop.errors}")
+            out.append(loop.run_blocks(n, collect=True))
+            if checkpoint and i == len(ENGINE_LOOP_SCRIPT) // 2:
+                save_state(checkpoint, loop.state, loop.reg)
+                ck_at = sum(len(o) for o in out)
+        if loop.errors:
+            fail(f"loop errors: {loop.errors}")
+        audio = np.concatenate(out)
+        return (audio, ck_at) if checkpoint else audio
+    finally:
+        LM.SPEC_DEPTH = saved
+
+
+def _launches_per_call(fn, reps: int) -> tuple[float, float, float]:
+    """Per call of ``fn``, from torch.profiler: the device operations
+    (every kernel, memcpy and memset on the card), the host's kernel
+    launch calls, and the device milliseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops, api, us = 0, 0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ops += 1
+            us += dev_us(e)
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"):
+            api += 1
+    return ops / reps, api / reps, us / reps / 1e3
+
+
+def phase_engine_render(dev, card: str, work: str) -> dict:
+    """bench.py's render configuration on the card: render_chain equal to
+    sequential render_block, the loop at SPEC_DEPTH 8 equal to 0, a
+    checkpoint's sample-exact continuation; render and live-loop × real
+    time, launches per block, peak device memory, the sink's kind."""
+    from audio_decoder_tpu_torch.engine import render as ER
+    from audio_decoder_tpu_torch.engine.checkpoint import load_state
+    from audio_decoder_tpu_torch.runtime import loop as LM
+    from audio_decoder_tpu_torch.runtime.native import Sink
+
+    st, _ = render_config(dev)
+    F, D = RENDER_FRAMES, RENDER_DEPTH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    blks, acts, poss, clocks = ER.render_chain(st, frames=F, out_channels=2, depth=D)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    cur = st
+    for i in range(D):
+        blk, cur = ER.render_block(cur, frames=F, out_channels=2)
+        if not (torch.equal(blk, blks[i]) and torch.equal(cur.v_active, acts[i])
+                and torch.equal(cur.v_pos, poss[i]) and torch.equal(cur.clock, clocks[i])):
+            fail(f"render_chain differs from sequential render_block at block {i}")
+    if not torch.isfinite(blks).all() or float(blks.abs().max()) == 0.0:
+        fail("the render configuration rendered non-finite or silent blocks")
+    log(f"engine: render_chain ({D} x {F} frames, 64 voices) equals {D} "
+        f"sequential render_block calls bit for bit")
+
+    def chain_once() -> float:
+        t0 = time.perf_counter()
+        b = ER.render_chain(st, frames=F, out_channels=2, depth=D)[0]
+        float(b[-1, -1, 0])  # one fetch per chain
+        return D * F / RATE / (time.perf_counter() - t0)
+
+    chain_once()
+    rates = [chain_once() for _ in range(5)]
+    render_x = max(rates)
+    n_block, api_block, ms_block = _launches_per_call(
+        lambda: ER.render_block(st, frames=F, out_channels=2), 3)
+    n_period, api_period, ms_period = _launches_per_call(
+        lambda: ER.render_block(st, frames=LM.PERIOD, out_channels=2), 3)
+
+    base_audio = _loop_run(dev, 0)
+    ck = os.path.join(work, "engine_ckpt")
+    spec_audio, ck_at = _loop_run(dev, 8, checkpoint=ck)
+    if not np.array_equal(spec_audio, base_audio):
+        fail("EngineLoop at SPEC_DEPTH 8 differs from SPEC_DEPTH 0 on the card")
+    st2, reg2 = load_state(ck, device=dev)
+    loop2 = LM.EngineLoop(st2, reg2, RATE, 2, sink=Sink("default", RATE, 2,
+                                                         realtime=False))
+    rest = []
+    for line, n in ENGINE_LOOP_SCRIPT[len(ENGINE_LOOP_SCRIPT) // 2 + 1:]:
+        if not loop2.submit(line):
+            fail(f"resumed loop: command {line!r} rejected: {loop2.errors}")
+        rest.append(loop2.run_blocks(n, collect=True))
+    if loop2.errors:
+        fail(f"resumed loop errors: {loop2.errors}")
+    if not np.array_equal(np.concatenate(rest), base_audio[ck_at:]):
+        fail("the loop resumed from a checkpoint does not continue sample-exact")
+    log(f"engine: EngineLoop at SPEC_DEPTH 8 equals SPEC_DEPTH 0 bit for bit "
+        f"over {base_audio.shape[0]} frames; the checkpoint at frame {ck_at} "
+        f"continues sample-exact")
+
+    st, reg = render_config(dev)
+    loop = LM.EngineLoop(st, reg, RATE, 2, sink=Sink("default", RATE, 2,
+                                                      realtime=False))
+    loop.run_blocks(64)
+    n_live = 2048
+    t0 = time.perf_counter()
+    loop.run_blocks(n_live)
+    loop_x = n_live * LM.PERIOD / RATE / (time.perf_counter() - t0)
+    sink = Sink("default", RATE, 2)
+    kind = sink.mode
+    sink.close()
+    out = dict(render_x=render_x, render_x_runs=rates, loop_x=loop_x,
+               ops_per_block=n_block, launch_calls_per_block=api_block,
+               device_ms_per_block=ms_block, ops_per_period=n_period,
+               launch_calls_per_period=api_period,
+               device_ms_per_period=ms_period, peak_bytes=peak, sink=kind)
+    log(f"engine: render {render_x:.3f}x real time (best of 5 chains of {D} x "
+        f"{F} frames, 64 voices; runs {[round(r, 3) for r in rates]}); live "
+        f"loop {loop_x:.3f}x real time at PERIOD {LM.PERIOD} (SPEC_DEPTH "
+        f"{LM.SPEC_DEPTH}, {n_live} blocks); per block at {F} frames "
+        f"{n_block:.1f} device operations, {api_block:.1f} kernel launch "
+        f"calls, {ms_block:.3f} device ms; at {LM.PERIOD} frames "
+        f"{n_period:.1f}, {api_period:.1f}, {ms_period:.3f} ms; peak device "
+        f"memory of a chain {peak} B; sink {kind}  [{card}]")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1564,8 +1975,15 @@ def main() -> None:
             stream_paths, dev)
         t1 = time.perf_counter()
         phase_dsp(folder, dev, card, args.seed)
-        log(f"streams phases {t1 - t0:.3f} s, DSP phase "
-            f"{time.perf_counter() - t1:.3f} s")
+        t2 = time.perf_counter()
+        log(f"streams phases {t1 - t0:.3f} s, DSP phase {t2 - t1:.3f} s")
+        with tempfile.TemporaryDirectory(prefix="adt_smoke_engine_") as eng, \
+                tempfile.TemporaryDirectory(prefix="adt_smoke_work_") as work:
+            names = write_engine_folder(eng, folder, src["layer2"][0])
+            engine_launches, engine_shapes = phase_engine_cli(
+                eng, work, names, card, args.seed, launches)
+            phase_engine_render(dev, card, work)
+        log(f"engine phases {time.perf_counter() - t2:.3f} s")
         if args.profile:
             phase_profile(flac_folder, card)
             phase_families_profile(fam_folder, card, dev)
@@ -1579,6 +1997,11 @@ def main() -> None:
                             shapes={"mp3_entropy_scan": k1_streams,
                                     "mp3_polyphase_synthesis": k2_streams,
                                     **k34_streams}[k["name"]])
+        # the engine path: the launches of cli render's decode of the
+        # engine folder, counted alone, and the kernel on each call's
+        # inputs there
+        k["engine"] = dict(launches=engine_launches[k["name"]],
+                           shapes=engine_shapes[k["name"]])
         if k["name"] == "mp3_polyphase_synthesis":
             # the Layer I/II path: its launches per decode_dir of the
             # families folder, and K2 at its shapes

@@ -14,7 +14,9 @@ suite's JAX conftest:
 tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges) does.
 """
 
+import dataclasses
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -964,3 +966,145 @@ def test_entropy_kernel_on_a_stream_chunk_cut_at_its_last_byte(cuda_device):
         ref = HD.scan_plain(main, *lanes, n_big=nb, n_c1=nc)
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
+
+
+# ------------------------------------------------------------ the engine
+
+
+def engine_case(dev, seed=0, n_tracks=4, seconds=0.5, rate=44100):
+    """A 64-voice state on ``dev``: every voice used and started, velocities
+    mixed as in the render benchmark (every third voice reversed), gain
+    1/64, plus sequencer, tremolo and envelope voices on shared tempo
+    lanes, built through the command surface."""
+    from audio_decoder_tpu_torch.engine import commands as EC
+    from audio_decoder_tpu_torch.engine import state as ES
+
+    rng = np.random.default_rng(seed)
+    S = int(seconds * rate)
+    tracks = (rng.standard_normal((n_tracks, S, 2)) * 0.1).astype(np.float32)
+    names = [f"t{i}" for i in range(n_tracks)]
+    st = ES.empty_state(tracks, [S] * n_tracks, [2] * n_tracks,
+                        out_channels=2, device=dev)
+    reg = ES.HostRegistry(names)
+    proc = EC.CmdProcessor(reg, rate)
+    # the first n_tracks voices through commands; the other voices are
+    # set directly, as bench.py's configuration does
+    lines = [f"load {n} -t s:{97 + 13 * i}" for i, n in enumerate(names)]
+    lines += ["seq t0 -p 4 -s 0,1,3 -c a:0.6 -j a:0.5", "trem t1 -p 3 -d 0.7",
+              "env t2 -p 2 -d 0.8", "velocity t3 -1.3", "tc beat m:50",
+              "group g -v t2,t3 -t c:beat", "start -v t0", "start -v t1",
+              "start -g g", "start -t beat"]
+    for line in lines:
+        st = EC.apply(st, reg, proc.parse(line))
+    V = ES.MAX_VOICES
+    vel = np.where(np.arange(V) % 3 == 0, -1.0, 1.0) * (
+        0.25 + 1.75 * rng.uniform(size=V))
+    used = torch.ones(V, dtype=torch.bool, device=dev)
+    extra = torch.arange(V, device=dev) >= n_tracks
+    st = dataclasses.replace(
+        st, v_used=used, v_active=used,
+        v_track=torch.where(extra, torch.arange(V, device=dev) % n_tracks,
+                            st.v_track.long()).to(torch.int32),
+        v_pos=torch.where(extra, torch.as_tensor(
+            rng.uniform(1000, S - 1000, V), dtype=torch.float32, device=dev),
+            st.v_pos),
+        v_vel=torch.where(extra, torch.as_tensor(vel, dtype=torch.float32,
+                                                 device=dev), st.v_vel),
+        v_gain=torch.full((V,), 1.0 / 64, device=dev))
+    return st, reg
+
+
+def test_render_block_cuda_matches_cpu(cuda_device):
+    """Card against the port's CPU path: v_active, clock and v_pos equal,
+    blocks within max abs 2e-6 (cos/exp and the mix's sums may round
+    differently)."""
+    from audio_decoder_tpu_torch.engine import render as ER
+    from audio_decoder_tpu_torch.engine import state as ES
+
+    st, _ = engine_case(cuda_device)
+    cpu = ES.from_numpy(ES.to_numpy(st), "cpu")
+    for frames in (128, 4096, 128):
+        for _ in range(3):
+            gb, st = ER.render_block(st, frames=frames, out_channels=2)
+            cb, cpu = ER.render_block(cpu, frames=frames, out_channels=2)
+            assert float((gb.cpu() - cb).abs().max()) <= 2e-6
+            assert torch.equal(st.v_active.cpu(), cpu.v_active)
+            assert torch.equal(st.v_pos.cpu(), cpu.v_pos)
+            assert int(st.clock) == int(cpu.clock)
+
+
+def test_render_chain_cuda_bit_identical_to_sequential(cuda_device):
+    from audio_decoder_tpu_torch.engine import render as ER
+
+    st, _ = engine_case(cuda_device, seed=1)
+    for frames, depth in ((128, 8), (4096, 4)):
+        blks, acts, poss, clocks = ER.render_chain(
+            st, frames=frames, out_channels=2, depth=depth)
+        cur = st
+        for i in range(depth):
+            blk, cur = ER.render_block(cur, frames=frames, out_channels=2)
+            assert torch.equal(blk, blks[i])
+            assert torch.equal(cur.v_active, acts[i])
+            assert torch.equal(cur.v_pos, poss[i])
+            assert torch.equal(cur.clock, clocks[i])
+        st = cur
+
+
+def test_engine_loop_cuda_speculation_bit_identical(cuda_device, monkeypatch):
+    """EngineLoop at SPEC_DEPTH 8 equals SPEC_DEPTH 0 bit for bit on the
+    card, with commands landing mid-burst."""
+    from audio_decoder_tpu_torch.runtime import loop as LM
+    from audio_decoder_tpu_torch.runtime.native import Sink
+
+    script = [("velocity t1 -0.5", 5), ("pause -g g", 9), ("resume -g g", 3),
+              ("trem t0 -p 2 -d 0.3", 17), ("stop -v t1", 4), ("start -v t1", 11)]
+
+    def run(depth):
+        monkeypatch.setattr(LM, "SPEC_DEPTH", depth)
+        st, reg = engine_case(cuda_device, seed=2)
+        loop = LM.EngineLoop(st, reg, 44100, 2,
+                             sink=Sink("default", 44100, 2, realtime=False))
+        out = [loop.run_blocks(6, collect=True)]
+        for cmd, n in script:
+            assert loop.submit(cmd)
+            out.append(loop.run_blocks(n, collect=True))
+        assert not loop.errors
+        return np.concatenate(out)
+
+    base = run(0)
+    assert np.abs(base).max() > 0
+    assert np.array_equal(run(8), base)
+
+
+def test_cli_render_cuda_within_one_lsb_of_cpu(cuda_device, tmp_path):
+    from audio_decoder_tpu_torch import cli
+
+    rng = np.random.default_rng(3)
+    d = tmp_path / "assets"
+    d.mkdir()
+    for i in range(3):
+        pcm = (rng.standard_normal((22050, 2)) * 6000).astype(np.int16)
+        data = pcm.tobytes()
+        fmt = struct.pack("<HHIIHH", 1, 2, 44100, 44100 * 4, 4, 16)
+        body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+                + b"data" + struct.pack("<I", len(data)) + data)
+        (d / f"w{i}.wav").write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+    (d / "m.mp3").write_bytes(open(FIXTURES[1], "rb").read())
+    script = tmp_path / "s.txt"
+    script.write_text("load w0 -t s:300\nload w1\nload m\n"
+                      "seq w0 -p 4 -s 0,2 -c a:0.7 -j a:0.3\ntrem w1 -t s:200 -p 2 -d 0.5\n"
+                      "group g -v w1,m -t m:40\nstart -v w0\nstart -g g\n@0.2\n"
+                      "velocity m -1.1\n@0.1\npause -g g\n@0.05\nresume -g g\n")
+    outs = {}
+    for plat in ("cuda", "cpu"):
+        args = cli.parse_args((["--platform", "cpu"] if plat == "cpu" else [])
+                              + ["render", "--assets", str(d), "--script",
+                                 str(script), "--resample", "--seconds", "0.05",
+                                 "--out", str(tmp_path / f"{plat}.wav")])
+        assert args.platform == plat  # the card is the default
+        assert args.fn(args) == 0
+        outs[plat] = args.pcm.astype(np.int32)
+        got = decode_paths([str(tmp_path / f"{plat}.wav")], device=plat).file(0)
+        np.testing.assert_array_equal(got.pcm, args.pcm / np.float32(32768))
+    assert outs["cuda"].shape == outs["cpu"].shape
+    assert np.abs(outs["cuda"] - outs["cpu"]).max() <= 1

@@ -89,7 +89,7 @@ def test_no_path_into_the_jax_package():
     assert hits == []
 
 
-@pytest.mark.parametrize("name", ["mp3fe.cc", "flacfe.cc"])
+@pytest.mark.parametrize("name", ["mp3fe.cc", "flacfe.cc", "runtime.cc"])
 def test_native_sources_are_copies(name):
     """The port's C++ front-ends equal the JAX package's sources once the
     first line, which names the source, is removed."""
@@ -104,7 +104,7 @@ def test_native_sources_are_copies(name):
 PY_COPIES = ["core/errors.py", "io/assets.py", "codecs/flac/host.py",
              "codecs/mpeg/tables.py", "codecs/mpeg/huffman_tables.py",
              "codecs/mpeg/synth_window.py", "codecs/mpeg/frontend.py",
-             "codecs/mpeg/layer12_tables.py"]
+             "codecs/mpeg/layer12_tables.py", "utils/rng.py"]
 
 
 @pytest.mark.parametrize("rel", PY_COPIES)
