@@ -26,6 +26,12 @@ past the stream read as zero, as the JAX program's padded words do, and an
 int64 → int32 conversion wraps, as the JAX program's int32 arithmetic.  The
 quotient cap and the outlier routing are the JAX package's: lanes that
 see q > Q_CAP raise the per-file overflow flag.
+
+Over a mesh (``flac_decode_batch(..., mesh=)``, parallel/decode.py's
+``sharded_flac_fn``) the lanes and frames shard over ``data`` and the
+assemblies are K5 calls (ops/window_add.window_add_spmd: K3 per shard plus
+one psum), two for the values and one for the PCM, as in the JAX
+package's mesh route.
 """
 
 from __future__ import annotations
@@ -197,6 +203,75 @@ def _stereo(sub_pcm, fr_mode, channels: int):
     return torch.stack([left, right], dim=1)
 
 
+def _lane_windows(bytes_u8, limit, rl_file, rl_bitpos, rl_count, rl_param,
+                  rl_sub, rl_dest, fw_file, fw_bitpos, fw_count, fw_width,
+                  fw_sub, fw_dest, *, nmax: int, rice_steps: int,
+                  fw_imax: int, rice_narrow: bool):
+    """The value windows of the fixed-width and rice lanes: (rl_starts,
+    rl_upd, fw_starts, fw_upd, per-lane overflow).  Every value source
+    lands at a contiguous per-lane window (dest = lane base + i), in stream
+    order == destination order, the window-add kernels' contract."""
+    dev = bytes_u8.device
+    W = rice_steps * rice_k(rice_narrow)
+    with record_function("flac.fixed_width"):
+        fwv = _fixed_width(bytes_u8, fw_bitpos, fw_width,
+                           limit[fw_file.long()], fw_imax)
+        fvalid = (torch.arange(fw_imax, device=dev)[None, :]
+                  < fw_count[:, None])
+        fw_starts = (fw_sub * (nmax + 1) + fw_dest).to(torch.int32)
+        fw_upd = torch.where(fvalid, fwv, 0)
+    with record_function("flac.rice_scan"):
+        rv, ovf_l = _rice_scan(bytes_u8, rl_bitpos, rl_count, rl_param,
+                               limit[rl_file.long()], rice_steps, rice_narrow)
+        rvalid = torch.arange(W, device=dev)[None, :] < rl_count[:, None]
+        rl_starts = (rl_sub * (nmax + 1) + rl_dest).to(torch.int32)
+        rl_upd = torch.where(rvalid, rv, 0)
+    return rl_starts, rl_upd, fw_starts, fw_upd, ovf_l
+
+
+def _direct_values(vals_flat, dv_sub, dv_dest, dv_val, nmax: int):
+    """Add the host-decoded quotient outliers into the flat values;
+    padding rows carry an out-of-range dest and drop."""
+    with record_function("flac.direct_values"):
+        n_vals = vals_flat.shape[0]
+        dv_idx = dv_sub.to(torch.int64) * (nmax + 1) + dv_dest.to(torch.int64)
+        keep = (dv_idx >= 0) & (dv_idx < n_vals)
+        return vals_flat.index_put(
+            (torch.where(keep, dv_idx, 0),),
+            torch.where(keep, dv_val, 0), accumulate=True)
+
+
+def _frame_windows(vals, sub_kind, sub_order, sub_shift, sub_wasted,
+                   sub_coeffs, fr_file, fr_start, fr_n, fr_mode, fr_scale, *,
+                   channels: int, nmax: int, smax: int):
+    """Subframe values ``[Ls, nmax]`` (frame-major, Ls = F * channels) →
+    the PCM windows (starts, upd ``[F, nmax * channels]``): predictors,
+    stereo, scale; one frame's samples land contiguously in the flat
+    interleaved output."""
+    dev = vals.device
+    F = fr_file.shape[0]
+    with record_function("flac.predict"):
+        s = _predict(vals, sub_kind, sub_order, sub_shift, sub_wasted,
+                     sub_coeffs, nmax)
+    with record_function("flac.stereo"):
+        sub_pcm = _stereo(s.reshape(F, channels, nmax), fr_mode, channels)
+        pcm_f = sub_pcm.to(torch.float32) * fr_scale[:, None, None]
+        W_pcm = nmax * channels
+        jvalid = ((torch.arange(W_pcm, device=dev)[None, :] // channels)
+                  < fr_n[:, None])
+        upd = torch.where(jvalid, pcm_f.transpose(1, 2).reshape(F, W_pcm), 0.0)
+        starts = (fr_file * (smax * channels) + fr_start * channels).to(torch.int32)
+    return starts, upd
+
+
+def _scan_limit(file_off, file_bits, n_bytes: int):
+    """Each file's scan limit (absolute bits), int64 ``[B]``."""
+    i64 = torch.int64
+    return torch.minimum(file_off.to(i64) + file_bits.to(i64),
+                         torch.tensor(_scan_limit_cap(n_bytes), dtype=i64,
+                                      device=file_off.device))
+
+
 def flac_decode_batch(
     bytes_u8,       # u8 [Ntot] raw bytes of ALL files, concatenated
     file_off,       # i32 [B] absolute start BIT of each file
@@ -216,6 +291,7 @@ def flac_decode_batch(
     fw_imax: int,
     rice_narrow: bool = False,
     stage: str = "full",
+    mesh=None,
 ):
     """Whole-batch FLAC decode → (pcm f32 ``[B, smax*channels]``, ovf bool
     ``[B]``).  Sublanes are frame-major/channel-minor, so Ls == F *
@@ -224,61 +300,46 @@ def flac_decode_batch(
 
     ``stage="windows"`` stops before K3 and returns the two window-add
     calls' inputs instead: ``{"window_add2": (rl_starts, rl_upd,
-    fw_starts, fw_upd, n_vals), "window_add": (starts, upd, n_pcm)}``."""
-    i64 = torch.int64
+    fw_starts, fw_upd, n_vals), "window_add": (starts, upd, n_pcm)}``.
+
+    With a ``mesh`` (parallel/mesh.py) the decode runs sharded
+    (``_decode_on_mesh``) and returns ``Sharded`` pcm and ovf."""
+    if mesh is not None:
+        if stage != "full":
+            raise ValueError("the mesh route decodes stage='full' only")
+        return _decode_on_mesh(
+            mesh, bytes_u8, file_off, file_bits,
+            rl_file, rl_sub, rl_bitpos, rl_count, rl_param, rl_dest,
+            fw_file, fw_sub, fw_bitpos, fw_count, fw_width, fw_dest,
+            dv_sub, dv_dest, dv_val, sub_kind, sub_order, sub_shift,
+            sub_wasted, sub_coeffs, fr_file, fr_start, fr_n, fr_mode,
+            fr_scale, channels=channels, nmax=nmax, smax=smax,
+            rice_steps=rice_steps, fw_imax=fw_imax, rice_narrow=rice_narrow)
     dev = bytes_u8.device
-    limit = torch.minimum(file_off.to(i64) + file_bits.to(i64),
-                          torch.tensor(_scan_limit_cap(bytes_u8.shape[0]),
-                                       dtype=i64, device=dev))
+    limit = _scan_limit(file_off, file_bits, bytes_u8.shape[0])
     Ls = sub_kind.shape[0]
-    F = fr_file.shape[0]
     W = rice_steps * rice_k(rice_narrow)
     n_vals = Ls * (nmax + 1) + max(W, fw_imax)
 
-    with record_function("flac.fixed_width"):
-        fwv = _fixed_width(bytes_u8, fw_bitpos, fw_width,
-                           limit[fw_file.long()], fw_imax)
-        fvalid = (torch.arange(fw_imax, device=dev)[None, :]
-                  < fw_count[:, None])
-        fw_starts = (fw_sub * (nmax + 1) + fw_dest).to(torch.int32)
-        fw_upd = torch.where(fvalid, fwv, 0)
-    with record_function("flac.rice_scan"):
-        rv, ovf_l = _rice_scan(bytes_u8, rl_bitpos, rl_count, rl_param,
-                               limit[rl_file.long()], rice_steps, rice_narrow)
-        rvalid = torch.arange(W, device=dev)[None, :] < rl_count[:, None]
-        rl_starts = (rl_sub * (nmax + 1) + rl_dest).to(torch.int32)
-        rl_upd = torch.where(rvalid, rv, 0)
-
+    rl_starts, rl_upd, fw_starts, fw_upd, ovf_l = _lane_windows(
+        bytes_u8, limit, rl_file, rl_bitpos, rl_count, rl_param, rl_sub,
+        rl_dest, fw_file, fw_bitpos, fw_count, fw_width, fw_sub, fw_dest,
+        nmax=nmax, rice_steps=rice_steps, fw_imax=fw_imax,
+        rice_narrow=rice_narrow)
     with record_function("flac.window_add2"):
-        # every value source lands at a contiguous per-lane window (dest =
-        # lane base + i), in stream order == destination order: K4
+        # both lane sets into the flat values in one pass: K4
         k4_args = (rl_starts, rl_upd, fw_starts, fw_upd, n_vals)
         vals_flat = window_add2(*k4_args)
-    with record_function("flac.direct_values"):
-        # host-decoded quotient outliers; padding rows carry an
-        # out-of-range dest and drop
-        dv_idx = dv_sub.to(i64) * (nmax + 1) + dv_dest.to(i64)
-        keep = (dv_idx >= 0) & (dv_idx < n_vals)
-        vals_flat = vals_flat.index_put(
-            (torch.where(keep, dv_idx, 0),),
-            torch.where(keep, dv_val, 0), accumulate=True)
-        vals = vals_flat[: Ls * (nmax + 1)].reshape(Ls, nmax + 1)[:, :nmax]
+    vals_flat = _direct_values(vals_flat, dv_sub, dv_dest, dv_val, nmax)
+    vals = vals_flat[: Ls * (nmax + 1)].reshape(Ls, nmax + 1)[:, :nmax]
 
-    with record_function("flac.predict"):
-        s = _predict(vals, sub_kind, sub_order, sub_shift, sub_wasted,
-                     sub_coeffs, nmax)
-    with record_function("flac.stereo"):
-        sub_pcm = _stereo(s.reshape(F, channels, nmax), fr_mode, channels)
-        pcm_f = sub_pcm.to(torch.float32) * fr_scale[:, None, None]
-        # one frame's samples land contiguously in the flat interleaved
-        # output, so the frame-to-file assembly is K3 over [F, nmax*C] rows
-        B_out = file_bits.shape[0]
-        W_pcm = nmax * channels
-        n_pcm = B_out * smax * channels + W_pcm
-        jvalid = ((torch.arange(W_pcm, device=dev)[None, :] // channels)
-                  < fr_n[:, None])
-        upd = torch.where(jvalid, pcm_f.transpose(1, 2).reshape(F, W_pcm), 0.0)
-        starts = (fr_file * (smax * channels) + fr_start * channels).to(torch.int32)
+    # the frame-to-file assembly is K3 over [F, nmax*C] rows
+    starts, upd = _frame_windows(
+        vals, sub_kind, sub_order, sub_shift, sub_wasted, sub_coeffs,
+        fr_file, fr_start, fr_n, fr_mode, fr_scale, channels=channels,
+        nmax=nmax, smax=smax)
+    B_out = file_bits.shape[0]
+    n_pcm = B_out * smax * channels + nmax * channels
     if stage == "windows":
         return {"window_add2": k4_args, "window_add": (starts, upd, n_pcm)}
     with record_function("flac.window_add"):
@@ -288,6 +349,94 @@ def flac_decode_batch(
     ovf = torch.zeros((B_out,), dtype=torch.int32, device=dev)
     ovf = ovf.index_put((rl_file.long(),), ovf_l.to(torch.int32), accumulate=True)
     return pcm, ovf > 0
+
+
+def _decode_on_mesh(mesh, bytes_u8, file_off, file_bits, *desc, channels: int,
+                    nmax: int, smax: int, rice_steps: int, fw_imax: int,
+                    rice_narrow: bool):
+    """``flac_decode_batch`` over a mesh: the byte stream replicated on the
+    ``data`` devices, the file, lane, subframe and frame descriptors sharded
+    over ``data``.
+
+    Each data shard scans its own lanes, on its own device, against the
+    whole per-file ``limit`` (an all-gather of two ``[B]`` arrays: lanes
+    index files globally).  The values are two K5 calls
+    (ops/window_add.window_add_spmd), K3 per shard plus one psum each, so
+    every data shard's device holds all of them (lanes index subframe rows
+    globally); the outliers are added once to that sum there.  The sums go
+    to the ``data`` devices only: the devices of model j > 0 read none of
+    a decode's results.  Each shard then
+    reconstructs its own frames (subframe shards follow the frame shards,
+    Ls = F * channels frame-major) and the PCM is one more K5 call.  The
+    per-file overflow is a second psum (an OR as a sum > 0).  Returns
+    ``Sharded`` pcm ``[B, smax*channels]`` and ovf ``[B]`` over files.
+    Every output element gets one nonzero term, so the result equals the
+    single-device decode bit for bit."""
+    from ...ops.window_add import window_add_spmd
+    from ...parallel import mesh as M
+
+    (rl_file, rl_sub, rl_bitpos, rl_count, rl_param, rl_dest,
+     fw_file, fw_sub, fw_bitpos, fw_count, fw_width, fw_dest,
+     dv_sub, dv_dest, dv_val, sub_kind, sub_order, sub_shift, sub_wasted,
+     sub_coeffs, fr_file, fr_start, fr_n, fr_mode, fr_scale) = [
+        M.shard(a, mesh) for a in desc]
+    devs = mesh.axis_devices("data")
+    byts = M.replicate(bytes_u8, mesh, devs)
+    off, bits = M.shard(file_off, mesh), M.shard(file_bits, mesh)
+    n_bytes = byts.value.shape[0]
+    off_all, bits_all = (M.all_gather(a, mesh, devs) for a in (off, bits))
+    D = len(devs)
+    Ls = sum(s.shape[0] for s in sub_kind.shards)
+    B_out = sum(s.shape[0] for s in off.shards)
+    W = rice_steps * rice_k(rice_narrow)
+    n_vals = Ls * (nmax + 1) + max(W, fw_imax)
+
+    sets = []
+    for i, d in enumerate(devs):
+        lim = _scan_limit(off_all.on(d), bits_all.on(d), n_bytes)
+        sets.append(_lane_windows(
+            byts.on(d), lim, *(a.shards[i] for a in (
+                rl_file, rl_bitpos, rl_count, rl_param, rl_sub, rl_dest,
+                fw_file, fw_bitpos, fw_count, fw_width, fw_sub, fw_dest)),
+            nmax=nmax, rice_steps=rice_steps, fw_imax=fw_imax,
+            rice_narrow=rice_narrow))
+    with record_function("flac.window_add_spmd"):
+        rl_vals = window_add_spmd(M.Sharded(tuple(s[0] for s in sets)),
+                                  M.Sharded(tuple(s[1] for s in sets)),
+                                  n_vals, mesh=mesh, to=devs)
+        fw_vals = window_add_spmd(M.Sharded(tuple(s[2] for s in sets)),
+                                  M.Sharded(tuple(s[3] for s in sets)),
+                                  n_vals, mesh=mesh, to=devs)
+    dv = [M.all_gather(a, mesh, devs) for a in (dv_sub, dv_dest, dv_val)]
+    vals_flat = {}
+    for d in dict.fromkeys(devs):
+        v = rl_vals.on(d) + fw_vals.on(d)
+        vals_flat[d] = _direct_values(v, *(a.on(d) for a in dv), nmax)
+
+    rows = Ls // D
+    frames = []
+    for i, d in enumerate(devs):
+        vals = vals_flat[d][i * rows * (nmax + 1):(i + 1) * rows * (nmax + 1)]
+        frames.append(_frame_windows(
+            vals.reshape(rows, nmax + 1)[:, :nmax],
+            *(a.shards[i] for a in (sub_kind, sub_order, sub_shift, sub_wasted,
+                                    sub_coeffs, fr_file, fr_start, fr_n,
+                                    fr_mode, fr_scale)),
+            channels=channels, nmax=nmax, smax=smax))
+    n_pcm = B_out * smax * channels + nmax * channels
+    with record_function("flac.window_add_spmd"):
+        out = window_add_spmd(M.Sharded(tuple(f[0] for f in frames)),
+                              M.Sharded(tuple(f[1] for f in frames)),
+                              n_pcm, mesh=mesh, to=devs)
+    ovf = M.psum([torch.zeros((B_out,), dtype=torch.int32, device=d).index_put(
+        (rl_file.shards[i].long(),), s[4].to(torch.int32), accumulate=True)
+        for i, (d, s) in enumerate(zip(devs, sets))], mesh, devs)
+    per = B_out // D
+    pcm = M.Sharded(tuple(
+        out.on(d)[i * per * smax * channels:(i + 1) * per * smax * channels]
+        .reshape(per, smax * channels) for i, d in enumerate(devs)))
+    return pcm, M.Sharded(tuple(ovf.on(d)[i * per:(i + 1) * per] > 0
+                                for i, d in enumerate(devs)))
 
 
 def _wire_sizes(B: int, F: int, Lr: int, Lw: int, Ld: int,

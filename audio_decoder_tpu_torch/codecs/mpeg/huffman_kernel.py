@@ -66,16 +66,17 @@ def _scan_cuda(main_u8, lanes: dict, tsel, n_big: int, n_c1: int):
     c1 = torch.empty((n, 144, 4), dtype=torch.int16, device=dev)
     fail = torch.empty((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mp3_entropy_scan(
-        main_u8.data_ptr(), main_u8.shape[0], main_u8.shape[1],
-        *[lanes[k].data_ptr() for k in _LANE_ARGS[:7]], tsel.data_ptr(),
-        lanes["c1sel"].data_ptr(), lanes["valid"].data_ptr(),
-        tb["lut2"].data_ptr(), tb["l1_base"].data_ptr(),
-        tb["c1lut"].data_ptr(), tb["big_width"].data_ptr(),
-        tb["ktid"].data_ptr(), tb["klin"].data_ptr(), tb["kres"].data_ptr(),
-        n, min(max(n_big, 1), 512), HD.count1_quads(n_c1),
-        big576.data_ptr(), c1.data_ptr(), fail.data_ptr(), stream,
-    )
+    with torch.cuda.device(dev):  # launch on the tensors' card
+        rc = lib.mp3_entropy_scan(
+            main_u8.data_ptr(), main_u8.shape[0], main_u8.shape[1],
+            *[lanes[k].data_ptr() for k in _LANE_ARGS[:7]], tsel.data_ptr(),
+            lanes["c1sel"].data_ptr(), lanes["valid"].data_ptr(),
+            tb["lut2"].data_ptr(), tb["l1_base"].data_ptr(),
+            tb["c1lut"].data_ptr(), tb["big_width"].data_ptr(),
+            tb["ktid"].data_ptr(), tb["klin"].data_ptr(), tb["kres"].data_ptr(),
+            n, min(max(n_big, 1), 512), HD.count1_quads(n_c1),
+            big576.data_ptr(), c1.data_ptr(), fail.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"mp3_entropy_scan launch failed: CUDA error {rc}")
     launches += 1

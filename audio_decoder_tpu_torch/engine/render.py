@@ -63,6 +63,17 @@ def _jitter_seed(key: torch.Tensor) -> torch.Tensor:
 def render_block(st: EngineArrays, *, frames: int, out_channels: int
                  ) -> tuple[torch.Tensor, EngineArrays]:
     """Render ``frames`` samples → (block [frames, out_channels] f32, state')."""
+    mix, st2 = render_mix(st, frames=frames, out_channels=out_channels)
+    return mix.clamp(-1.0, 1.0), st2
+
+
+def render_mix(st: EngineArrays, *, frames: int, out_channels: int
+               ) -> tuple[torch.Tensor, EngineArrays]:
+    """``render_block`` before the clamp: (the voices' summed mix
+    [frames, out_channels] f32, state').  The voice-sharded render
+    (parallel/render.py) adds the shards' mixes, then clamps once.  The
+    per-voice fields may hold any subset of the voices: tempo lanes,
+    groups and tracks are indexed through the voices' own fields."""
     F = frames
     f32, i64 = torch.float32, torch.int64
     dev = st.device
@@ -175,14 +186,14 @@ def render_block(st: EngineArrays, *, frames: int, out_channels: int
     smp = torch.where(mono, smp[:, :, :1], smp)
 
     w = torch.where(audible, st.v_gain[:, None] * gain_mult, 0.0)  # [V, F]
-    block = (w[..., None] * smp).sum(dim=0).clamp(-1.0, 1.0)  # [F, out]
+    mix = (w[..., None] * smp).sum(dim=0)  # [F, out], clamped by the caller
 
     # ---- advance state (paused/stopped voices hold position) ----
     pos_next = torch.where(sounding, pos[:, F - 1] + st.v_vel, st.v_pos)
     # without a sequencer the voice parks when it runs off the track
     ran_off = (pos_next < 0.0) | (pos_next > end)
     active_next = st.v_active & (~sounding | has_seq | ~ran_off)
-    return block, dataclasses.replace(
+    return mix, dataclasses.replace(
         st, v_active=active_next, v_pos=pos_next,
         clock=_wrap_i32(st.clock.long() + F))
 

@@ -126,8 +126,9 @@ def _synthesis_cuda(TS, n_mat, g2):
     BC, T, _ = TS.shape
     out = torch.empty_like(TS)
     stream = torch.cuda.current_stream(TS.device).cuda_stream
-    rc = lib.mp3_synth(TS.data_ptr(), nf.data_ptr(), g2.data_ptr(),
-                       out.data_ptr(), BC, T, stream)
+    with torch.cuda.device(TS.device):  # launch on the tensors' card
+        rc = lib.mp3_synth(TS.data_ptr(), nf.data_ptr(), g2.data_ptr(),
+                           out.data_ptr(), BC, T, stream)
     if rc != 0:
         raise RuntimeError(f"mp3_synth launch failed: CUDA error {rc}")
     launches += 1

@@ -23,6 +23,10 @@ with one host call: ``window_add`` the three kernels of
 alone (``plan_sizes1``, ``plan_sizes``).  A failed launch raises; nothing
 falls back.  For CPU tensors they run the plain twins.  Any other device
 raises.  ``launches`` counts wrapper calls that launched their kernels.
+
+``window_add_spmd`` is the port of the mesh-sharded ``window_add_spmd``
+(K5): K3 on each data shard's lanes into a full-size partial, then one
+``psum`` over the shards (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 from ..utils import build
 
 #: times each CUDA kernel was launched in this process
-launches = {"window_add": 0, "window_add2": 0}
+launches = {"window_add": 0, "window_add2": 0, "window_add_spmd": 0}
 
 
 #: window_add.cu's output tile, the lane-elements of one unit of work and
@@ -221,6 +225,12 @@ def _check_set(name: str, starts, upd, dev, dtype) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def _card(dev: torch.device):
+    """Make the tensors' card current for a launch (a ctypes launch runs on
+    the current card); no-op for the CPU tensors of the wrappers' tests."""
+    return torch.cuda.device(dev if dev.type == "cuda" else -1)
+
+
 def _window_add1_cuda(starts: torch.Tensor, upd: torch.Tensor, n_out: int,
                       lib=None, stream=None) -> torch.Tensor:
     """Launch ``csrc/window_add.cu`` (or ``lib``, a library with its
@@ -237,10 +247,11 @@ def _window_add1_cuda(starts: torch.Tensor, upd: torch.Tensor, n_out: int,
     if stream is None:
         stream = torch.cuda.current_stream(dev).cuda_stream
     base = ws.data_ptr()
-    rc = lib.window_add_launch(
-        starts.data_ptr(), L, upd.data_ptr(), W, n_out,
-        int(upd.dtype == torch.float32), out.data_ptr(),
-        *[base + o for o in plan.offsets], plan.chunk, plan.heavy, stream)
+    with _card(dev):
+        rc = lib.window_add_launch(
+            starts.data_ptr(), L, upd.data_ptr(), W, n_out,
+            int(upd.dtype == torch.float32), out.data_ptr(),
+            *[base + o for o in plan.offsets], plan.chunk, plan.heavy, stream)
     if rc != 0:
         raise RuntimeError(f"window_add launch failed: CUDA error {rc}")
     launches["window_add"] += 1
@@ -263,12 +274,13 @@ def _window_add2_cuda(sets, n_out: int, lib=None, stream=None) -> torch.Tensor:
     if stream is None:
         stream = torch.cuda.current_stream(dev).cuda_stream
     base = ws.data_ptr()
-    rc = lib.window_add2_launch(
-        sa.data_ptr(), sa.shape[0], ua.data_ptr(), ua.shape[1], sb.data_ptr(),
-        sb.shape[0], ub.data_ptr(), ub.shape[1], n_out,
-        int(dtype == torch.float32), out.data_ptr(),
-        *[base + o for o in plan.offsets], plan.chunk, plan.heavy,
-        stream)
+    with _card(dev):
+        rc = lib.window_add2_launch(
+            sa.data_ptr(), sa.shape[0], ua.data_ptr(), ua.shape[1],
+            sb.data_ptr(), sb.shape[0], ub.data_ptr(), ub.shape[1], n_out,
+            int(dtype == torch.float32), out.data_ptr(),
+            *[base + o for o in plan.offsets], plan.chunk, plan.heavy,
+            stream)
     if rc != 0:
         raise RuntimeError(f"window_add2 launch failed: CUDA error {rc}")
     launches["window_add2"] += 1
@@ -299,3 +311,27 @@ def window_add2(starts_a: torch.Tensor, upd_a: torch.Tensor,
     return _dispatch("window_add2", window_add2_plain,
                      [(starts_a, upd_a), (starts_b, upd_b)], n_out,
                      _window_add2_cuda)
+
+
+def window_add_spmd(starts, upd, n_out: int, *, mesh, axis: str = "data",
+                    to=None):
+    """Mesh-sharded ``window_add`` (K5): lane-sharded inputs → the
+    ``[n_out]`` sum replicated on every device of ``to`` (default: every
+    mesh device), a ``Replicated``.
+
+    ``starts``/``upd`` are ``Sharded`` over ``axis`` (or whole tensors,
+    cut here).  Each shard's lanes are a contiguous slice of the start-
+    sorted lane array, so K3's contract holds per shard; a shard of
+    padding lanes only adds zeros.  K3 (its plain twin on the CPU) runs
+    once per shard, on that shard's device, into a full ``[n_out]``
+    partial, and the partials meet in one ``psum``.  In FLAC the live
+    windows tile the output, so each element gets one nonzero term and the
+    sum is exact."""
+    from ..parallel import mesh as M
+
+    s, u = M.shard(starts, mesh, axis), M.shard(upd, mesh, axis)
+    partials = [window_add(a, b, n_out) for a, b in zip(s.shards, u.shards)]
+    out = M.psum(partials, mesh, to)
+    if partials[0].device.type == "cuda":
+        launches["window_add_spmd"] += 1
+    return out

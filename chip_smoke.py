@@ -97,7 +97,28 @@ Phases:
      render's × real time (best of 5 chains after a warm one, one fetch a
      chain), the live loop's × real time at PERIOD 128, the device
      operations, kernel launch calls and device ms per block (torch
-     profiler), the chain's peak device memory and the sink's kind.
+     profiler), the chain's peak device memory and the sink's kind;
+ 13. the multi-device path (``parallel/``) on a logical mesh of 8 shards over
+     one card (data 4 x model 2): the main path's 16 WAV plus one (padded
+     to 20 by ``pad_batch``, consensus over the shards), the stereo MP3
+     fixture cut at 16 distinct frame boundaries, the families phase's
+     Layer II stream cut at 8 distinct frame counts, and 16 copies of the
+     FLAC music fixture beside 8 short seeded FLAC files, each decoded by
+     its ``sharded_*_fn`` and held against the single-card decode of the
+     same inputs (WAV and FLAC bit for bit, FLAC also against every file's
+     MD5; MP3 and Layer II bit for bit or else within amplitude-scaled RMS
+     5e-7, the max abs difference printed), each run's launches counted
+     alone (K1 and K2 once per data shard, K3 3 x 4 times and K4 never in
+     the FLAC decode, i.e. K5 three times), each K1, K2 and K3 call's
+     inputs kept and the kernel held against its twin on them (K1 and K3
+     exactly, K2 within atol 1e-4 / rtol 1e-5) and timed, and the wall of
+     a second run beside the single card's; bench.py's render over
+     ``model`` (two chains of 64 blocks bit-identical, each block within
+     2e-6 of the single-card render, positions equal); K5 at the 16-file
+     FLAC group's PCM windows over the 4 data shards, exact against its
+     plain twin and timed beside it, its bound and ``index_add_``.  Where
+     more than one card is visible it repeats the decodes and the render
+     over the cards and prints how often the cross-card NCCL reduce ran.
 
 With ``--profile`` it then profiles one decode of the 16 FLAC files with
 torch.profiler and prints each FLAC stage's host and device time (the
@@ -108,12 +129,17 @@ its kernel launches.
 
 Every phase is fatal.  The kernels line gives each kernel's launches on
 the main path, the streams (``streams``), the Layer I/II path
-(``layer12``) and the engine's decode (``engine``).  The last line of
+(``layer12``), the engine's decode (``engine``) and the sharded runs
+(``multichip``); K5 (``window_add_spmd``) has its own entry.  The last line of
 standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
 its power limit, and the line before that lists the kernels.
 
-Usage:  python3 chip_smoke.py [--seed N] [--profile]
+With ``--phase multichip`` it builds, writes the main path's WAV files
+and a seeded Layer II stream, and runs phase 13 alone (about a minute):
+the quick check of the cross-card path on a machine with several cards.
+
+Usage:  python3 chip_smoke.py [--seed N] [--profile] [--phase all|multichip]
 """
 
 from __future__ import annotations
@@ -129,6 +155,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -145,7 +172,6 @@ N_FAM, N_L12 = 16, 8  # copies per PCM/ADPCM family, per Layer I/II stream
 ADPCM_BA = 2048
 SECONDS = 10.0
 RATE = 44100
-RMS_TOL = 5e-7  # float32 round-off bar of the MP3 tests, amplitude-scaled
 # the card's published peaks (H100 SXM data sheet): memory rate, and f32
 # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -162,9 +188,11 @@ def fail(msg: str) -> None:
 
 def scaled_rms_ok(ref: np.ndarray, got: np.ndarray) -> tuple[bool, float, float]:
     """RMS of the difference against 5e-7 scaled by the signal's RMS/0.2
-    (float32 round-off is relative to amplitude)."""
-    rms = float(np.sqrt(((ref - got) ** 2).mean()))
-    bar = RMS_TOL * max(1.0, float(np.sqrt((ref ** 2).mean())) / 0.2)
+    (float32 round-off is relative to amplitude; the port's
+    ``parallel.dryrun.scaled_rms``): (passes, RMS, bar)."""
+    from audio_decoder_tpu_torch.parallel.dryrun import scaled_rms
+
+    rms, bar = scaled_rms(ref, got)
     return rms < bar, rms, bar
 
 
@@ -703,8 +731,8 @@ def phase_flac_path(folder: str, good: dict, dev) -> dict:
     torch.cuda.synchronize()
     launches = dict(PW.launches)
     log(f"FLAC path launches: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("window_add", "window_add2"):
+        if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the FLAC path")
     if batch.data.device.type != dev.type or not torch.isfinite(batch.data).all():
         fail(f"FLAC batch is not finite PCM on {dev}")
@@ -1660,16 +1688,20 @@ def _captured_kernel_inputs():
     """Inside the block every call of a K1-K4 wrapper first keeps a copy of
     its inputs: yields {kernel: [(args, kwargs), ...]}.  K1 and K2 are
     looked up in their modules at each call, K3 and K4 where the FLAC
-    device program bound them; the wrappers are restored after."""
+    device program bound them, and K3 also in its own module, where K5
+    (``window_add_spmd``) calls it once per shard; the wrappers are
+    restored after."""
     from audio_decoder_tpu_torch.codecs.flac import device as FV
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
     from audio_decoder_tpu_torch.ops import synth_kernel as SK
+    from audio_decoder_tpu_torch.ops import window_add as PW
 
     seen: dict = {}
     slots = [(HK, "entropy_scan", "mp3_entropy_scan"),
              (SK, "polyphase_synthesis_blocks", "mp3_polyphase_synthesis"),
              (FV, "window_add2", "window_add2"),
-             (FV, "window_add", "window_add")]
+             (FV, "window_add", "window_add"),
+             (PW, "window_add", "window_add")]
     saved = [getattr(mod, attr) for mod, attr, _ in slots]
 
     def keeping(fn, key):
@@ -1688,24 +1720,28 @@ def _captured_kernel_inputs():
             setattr(mod, attr, fn)
 
 
-def phase_engine_kernels(seen: dict) -> dict:
-    """K1-K4 against their twins on the very inputs the engine's decode gave
-    them (``_captured_kernel_inputs``), each call timed beside its twin:
-    K1 per bucket exactly, K2 per group within atol 1e-4 / rtol 1e-5, K4
-    and K3 on the FLAC group exactly.  Returns {kernel: [shape entries]}."""
+def captured_kernels(seen: dict, where: str) -> dict:
+    """K1-K4 against their twins on the very inputs a run gave them
+    (``_captured_kernel_inputs``), each call timed beside its twin on its
+    inputs' card: K1 per bucket exactly, K2 per group within atol 1e-4 /
+    rtol 1e-5, K4 and K3 exactly.  Returns {kernel: [shape entries]}."""
     out: dict = {}
+
+    def on_card(key, args, timed, *rest):
+        with torch.cuda.device(args[0].device):
+            out.setdefault(key, []).append(timed(*rest))
+
     for i, (args, kw) in enumerate(seen.get("mp3_entropy_scan", [])):
-        out.setdefault("mp3_entropy_scan", []).append(_k1_timed(
-            f"engine decode's K1 call {i}", args[0], args[1:], kw["n_big"],
-            kw["n_c1"]))
-    for i, ((ts, n_mat, g2), _kw) in enumerate(
-            seen.get("mp3_polyphase_synthesis", [])):
-        out.setdefault("mp3_polyphase_synthesis", []).append(_k2_timed(
-            f"engine decode's K2 call {i}", ts, {"synth_n": n_mat, "g2": g2}))
+        on_card("mp3_entropy_scan", args, _k1_timed, f"{where}'s K1 call {i}",
+                args[0], args[1:], kw["n_big"], kw["n_c1"])
+    for i, (args, _kw) in enumerate(seen.get("mp3_polyphase_synthesis", [])):
+        ts, n_mat, g2 = args
+        on_card("mp3_polyphase_synthesis", args, _k2_timed,
+                f"{where}'s K2 call {i}", ts, {"synth_n": n_mat, "g2": g2})
     for name in ("window_add2", "window_add"):
         for i, (args, _kw) in enumerate(seen.get(name, [])):
-            out.setdefault(name, []).append(_window_timed(
-                f"engine decode's call {i}", name, args[:-1], args[-1]))
+            on_card(name, args, _window_timed, f"{where}'s call {i}", name,
+                    args[:-1], args[-1])
     return out
 
 
@@ -1739,12 +1775,12 @@ def phase_engine_cli(folder: str, work: str, names: list, card: str,
     want = {"mp3_entropy_scan": main_launches["mp3_entropy_scan"],
             "mp3_polyphase_synthesis":
                 main_launches["mp3_polyphase_synthesis"] + 1,
-            "window_add2": 1, "window_add": 1}
+            "window_add2": 1, "window_add": 1, "window_add_spmd": 0}
     calls = {k: len(seen.get(k, [])) for k in want}
     if launches != want or calls != want:
         fail(f"the engine's decode launched {launches} in {calls} wrapper "
              f"calls, want {want}")
-    shapes = phase_engine_kernels(seen)
+    shapes = captured_kernels(seen, "engine decode")
     del seen
     got = adt.decode_paths([args.out], device="cuda").file(0)
     want = args.pcm.astype(np.float32) / np.float32(32768.0)
@@ -1942,13 +1978,386 @@ def phase_engine_render(dev, card: str, work: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-device path (parallel/: mesh, sharded decode, the
+# voice-sharded render, K5)
+# ---------------------------------------------------------------------------
+
+#: the logical mesh: 8 shards on one card, data 4 x model 2 (the JAX
+#: package's virtual test mesh)
+MESH_N, MESH_MODEL = 8, 2
+MESH_WAV_EXTRA = 1  # the main path's 16 WAV plus one: an uneven batch
+MESH_FLAC_SHORT = 8  # short seeded FLAC files beside the 16 music copies
+
+
+def mesh_inputs(folder: str, layer2: bytes, seed: int) -> dict:
+    """The phase's host inputs, every file distinct: the main path's 16 WAV
+    plus one more; the stereo MP3 fixture cut at 16 distinct frame
+    boundaries (a frame-aligned prefix is a valid stream); the ``layer2``
+    stream (the families phase's) cut at 8 distinct frame counts (Layer II frames
+    stand alone, so a prefix's analysis is the analysis's prefix); 16
+    copies of the FLAC music fixture and 8 short seeded stereo files
+    (tests/flac_writer)."""
+    import dataclasses
+
+    from audio_decoder_tpu_torch.codecs.flac import frontend
+    from audio_decoder_tpu_torch.codecs.mpeg import frontend as MF
+    from audio_decoder_tpu_torch.codecs.mpeg import layer12 as L12
+    from audio_decoder_tpu_torch.io.assets import pack_bytes
+    from tests import flac_writer
+
+    rng = np.random.default_rng(seed + 13)
+    wavs = [open(os.path.join(folder, f"w{i:02d}.wav"), "rb").read()
+            for i in range(N_WAV)]
+    extra = rng.integers(-32768, 32768, (int(SECONDS * RATE) // 3, 2)).astype(np.int16)
+    wav_bufs, wav_lens = pack_bytes(wavs + [wav_blob(extra, RATE)])
+    mp3 = open(STEREO_MP3, "rb").read()
+    frames = MF.find_frames(mp3)
+    mp3s = [mp3[:frames[len(frames) - 1 - 5 * i][0]] for i in range(N_MP3)]
+    l2 = L12.analyze_l2(layer2)
+    l2s = [dataclasses.replace(l2, n_frames=n, codes=l2.codes[:n],
+                               cls=l2.cls[:n], sf_idx=l2.sf_idx[:n])
+           for n in (l2.n_frames - 9 * i for i in range(N_L12))]
+    music = open(MUSIC_FLAC, "rb").read()
+    short = [flac_writer.encode_file(
+        np.clip(rng.standard_normal((RATE // 2 + 997 * i, 2)) * 4000,
+                -32768, 32767).astype(np.int64), RATE, 16, blocksize=4096)
+        for i in range(MESH_FLAC_SHORT)]
+    flacs = [frontend.analyze(b) for b in [music] * N_FLAC + short]
+    return dict(wav=(wav_bufs, wav_lens), mp3=mp3s, layer2=l2s, flac=flacs,
+                wav_frames=int(SECONDS * RATE))
+
+
+def _mesh_refs(inp: dict, dev) -> dict:
+    """The single-card results the sharded ones are held against, with the
+    single-card wall of each decode."""
+    from audio_decoder_tpu_torch import parallel as P
+    from audio_decoder_tpu_torch.codecs.flac import decoder as FD
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
+    from audio_decoder_tpu_torch.codecs.mpeg import dsp
+    from audio_decoder_tpu_torch.codecs.mpeg import layer12 as L12
+    from audio_decoder_tpu_torch.parallel.dryrun import pack_mp3_group
+
+    def on(args):
+        return [torch.as_tensor(a).to(dev) for a in args]
+
+    bufs, lens = inp["wav"]
+    mp3_args, mp3_kw = pack_mp3_group(inp["mp3"])
+    l2 = inp["layer2"][0]
+    l2_kw = dict(channels=l2.channels, steps=l2.steps_per_frame)
+    l2_args = D.pack_layer12(inp["layer2"], "cpu")
+    sizing = P.round_sizing(FD.sizing_for(inp["flac"]), MESH_N // MESH_MODEL)
+    flac_args, flac_kw = FD.pack_group(inp["flac"], "cpu", sizing)
+    wav_kw = dict(bits=16, channels=2, max_frames=inp["wav_frames"])
+    calls = {
+        "wav": lambda: P.decode_pcm_step(*on((bufs, lens)), **wav_kw),
+        "mp3": lambda: dsp.mp3_decode_fused(*on(mp3_args), None, **mp3_kw),
+        "layer2": lambda: L12.l12_synthesize(*on(l2_args), **l2_kw),
+        "flac": lambda: FV.flac_decode_batch(*on(flac_args), **flac_kw),
+    }
+    refs, walls = {}, {}
+    for k, fn in calls.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs[k] = fn()
+        torch.cuda.synchronize()
+        walls[k] = time.perf_counter() - t0
+    return dict(refs=refs, walls=walls, wav_kw=wav_kw, mp3=(mp3_args, mp3_kw),
+                layer2=(l2_args, l2_kw), flac=(flac_args, flac_kw))
+
+
+def _counted_run(fn):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after, each K1-K4 call's inputs kept (``_captured_kernel_inputs``);
+    then ``fn()`` once more, timed alone: (the first run's result,
+    {kernel: launches}, {kernel: [(args, kwargs)]}, the second's wall
+    seconds)."""
+    _zero_kernel_counts()
+    with _captured_kernel_inputs() as seen:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = _kernel_counts()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return out, counts, seen, time.perf_counter() - t0
+
+
+def _close_or_equal(label: str, ref: torch.Tensor, got: torch.Tensor) -> str:
+    """Exact, or else within amplitude-scaled RMS 5e-7 per file (its max
+    abs difference printed); fails otherwise."""
+    if got.shape != ref.shape:
+        fail(f"mesh {label}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    if torch.equal(got, ref):
+        return "exact"
+    r, g = ref.cpu().numpy(), got.cpu().numpy()
+    worst = 0.0
+    for i in range(r.shape[0]):
+        ok, rms, bar = scaled_rms_ok(r[i], g[i])
+        if not ok:
+            fail(f"mesh {label}: file {i} RMS {rms:.3e} over {bar:.3e}")
+        worst = max(worst, rms)
+    return (f"within RMS 5e-7 (worst {worst:.3e}, max abs "
+            f"{float(np.abs(r - g).max()):.3e})")
+
+
+def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
+                  label: str) -> tuple[dict, dict]:
+    """Every sharded decode on ``mesh``, each counted alone and held against
+    the single-card result, and every K1, K2 and K3 call of the MP3, Layer
+    II and FLAC runs held against its twin on that call's inputs
+    (``captured_kernels``); returns ({path: {kernel: launches}}, {kernel:
+    [shape entries]})."""
+    from audio_decoder_tpu_torch import parallel as P
+    from audio_decoder_tpu_torch.codecs.flac import frontend
+
+    D = mesh.shape["data"]
+    dev0 = ref["refs"]["wav"][0].device
+    launches = {}
+    # WAV: 17 files padded to a multiple of the data size, consensus
+    bufs, lens = inp["wav"]
+    n_wav = bufs.shape[0]
+    bufs_p, lens_p, valid = P.pad_batch(bufs, lens, D)
+    step = P.sharded_decode_fn(mesh, **ref["wav_kw"])
+    (pcm, meta, rate, ch), counts, _, wall = _counted_run(
+        lambda: step(bufs_p, lens_p))
+    one, one_meta = ref["refs"]["wav"]
+    if not torch.equal(pcm.gather(dev0)[:n_wav], one):
+        fail(f"mesh {label} WAV PCM differs from the single-card decode")
+    err = meta["err"].gather("cpu").numpy()
+    if (err[:n_wav] != one_meta["err"].cpu().numpy()).any() or not (
+            err[~valid] != 0).all() or (err[valid] != 0).any():
+        fail(f"mesh {label} WAV error codes {err}")
+    if (int(rate.value), int(ch.value)) != (RATE, 2):
+        fail(f"mesh {label} WAV consensus {int(rate.value)} x {int(ch.value)}")
+    wavs = [inp["wav_src"][i] for i in range(N_WAV)]
+    got16 = pcm.gather("cpu")[:N_WAV].reshape(N_WAV, -1, 2).numpy()
+    if not np.array_equal(got16, np.stack(wavs) / np.float32(32768.0)):
+        fail(f"mesh {label} WAV PCM differs from its source")
+    launches["wav"] = counts
+    log(f"mesh {label} WAV: {n_wav} files padded to {bufs_p.shape[0]}, "
+        f"{D} data shards; equal to the single-card decode, padding rows "
+        f"masked, consensus {int(rate.value)} Hz x {int(ch.value)}; wall "
+        f"{wall * 1e3:.3f} ms (single card {ref['walls']['wav'] * 1e3:.3f} ms)"
+        f"  [{card}]")
+
+    seen_all: dict = {}
+    for path, make in (
+            ("mp3", lambda a, kw: P.sharded_mp3_decode_fn(mesh, **kw)(*a)),
+            ("layer2", lambda a, kw: P.sharded_l12_fn(mesh, **kw)(*a))):
+        args, kw = ref[path]
+        out, counts, seen, wall = _counted_run(lambda: make(args, kw))
+        for k, calls in seen.items():
+            seen_all.setdefault(k, []).extend(calls)
+        how = _close_or_equal(f"{label} {path}", ref["refs"][path],
+                              out.gather(dev0))
+        launches[path] = counts
+        log(f"mesh {label} {path}: {args[0].shape[0]} files over {D} data "
+            f"shards, {how} against the single-card decode; launches "
+            f"{ {k: n for k, n in counts.items() if n} }; wall "
+            f"{wall * 1e3:.3f} ms (single card "
+            f"{ref['walls'][path] * 1e3:.3f} ms)  [{card}]")
+
+    args, kw = ref["flac"]
+    (pcm, ovf), counts, seen, wall = _counted_run(
+        lambda: P.sharded_flac_fn(mesh, **kw)(*args))
+    seen_all.update(seen)
+    one, one_ovf = ref["refs"]["flac"]
+    if not torch.equal(pcm.gather(dev0), one) or not torch.equal(
+            ovf.gather(dev0), one_ovf) or bool(one_ovf.any()):
+        fail(f"mesh {label} FLAC differs from the single-card decode")
+    got = pcm.gather("cpu").numpy()
+    an = inp["flac"][0]
+    for i in range(N_FLAC):
+        view = types.SimpleNamespace(
+            pcm=got[i, :an.total * 2].reshape(an.total, 2), bits_per_sample=16)
+        if not _md5_ok(MUSIC_FLAC, view):
+            fail(f"mesh {label} FLAC file {i} fails its STREAMINFO MD5")
+    for i, a in enumerate(inp["flac"][N_FLAC:], N_FLAC):
+        ints = np.round(got[i, :a.total * 2].astype(np.float64) * 32768)
+        if frontend.verify_md5(a, ints.astype(np.int64).reshape(a.total, 2)) is not True:
+            fail(f"mesh {label} FLAC short file {i} fails its MD5")
+    want = {"window_add": 3 * D, "window_add2": 0, "window_add_spmd": 3}
+    if {k: counts[k] for k in want} != want:
+        fail(f"mesh {label} FLAC launched {counts}, want {want}")
+    launches["flac"] = counts
+    log(f"mesh {label} FLAC: {len(inp['flac'])} files over {D} data shards, "
+        f"equal to the single-card decode bit for bit, MD5 of all "
+        f"{len(inp['flac'])}; launches {counts}; wall {wall * 1e3:.3f} ms "
+        f"(single card {ref['walls']['flac'] * 1e3:.3f} ms)  [{card}]")
+    for path, k1 in (("mp3", 1), ("layer2", 0)):
+        want = {"mp3_entropy_scan": k1 * D, "mp3_polyphase_synthesis": D}
+        if {k: launches[path][k] for k in want} != want:
+            fail(f"mesh {label} {path} launched {launches[path]}, want {want}")
+    calls = {k: len(v) for k, v in seen_all.items()}
+    want = {"mp3_entropy_scan": D, "mp3_polyphase_synthesis": 2 * D,
+            "window_add": 3 * D}
+    if calls != want:
+        fail(f"mesh {label}: the kernels' wrappers were called {calls} "
+             f"times, want {want}")
+    shapes = captured_kernels(seen_all, f"mesh {label}")
+    log(f"mesh {label}: every K1, K2 and K3 call of the sharded MP3, Layer "
+        f"II and FLAC runs ({calls}) held against its twin on its inputs")
+    return launches, shapes
+
+
+def _mesh_render(mesh, dev, card: str, label: str) -> None:
+    """bench.py's render configuration over ``model``: a chain of 64
+    blocks twice (bit-identical), each block within 2e-6 of the
+    single-card render, positions, active flags and the clock equal."""
+    from audio_decoder_tpu_torch import parallel as P
+    from audio_decoder_tpu_torch.engine import render as ER
+
+    st, _ = render_config(dev)
+    step = P.sharded_render_fn(mesh, frames=RENDER_FRAMES, out_channels=2)
+
+    def chain():
+        sst, out = P.shard_engine_state(st, mesh), []
+        for _ in range(RENDER_DEPTH):
+            blk, sst = step(sst)
+            out.append(blk.value.to(dev))
+        torch.cuda.synchronize()
+        return torch.stack(out), sst.gather(dev)
+
+    chain()  # warm
+    t0 = time.perf_counter()
+    a, end_a = chain()
+    wall = time.perf_counter() - t0
+    b, _ = chain()
+    if not torch.equal(a, b):
+        fail(f"mesh {label} render: two sharded chains differ")
+    ref, cur = [], st
+    t0 = time.perf_counter()
+    for _ in range(RENDER_DEPTH):
+        blk, cur = ER.render_block(cur, frames=RENDER_FRAMES, out_channels=2)
+        ref.append(blk)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    err = float((a - torch.stack(ref)).abs().max())
+    if err > 2e-6:
+        fail(f"mesh {label} render: max abs {err:.3e} from the single card")
+    for k in ("v_pos", "v_active", "clock"):
+        if not torch.equal(getattr(end_a, k), getattr(cur, k)):
+            fail(f"mesh {label} render: {k} differs from the single card")
+    log(f"mesh {label} render: {RENDER_DEPTH} blocks x {RENDER_FRAMES} frames, "
+        f"64 voices over {mesh.shape['model']} model shards; two chains "
+        f"bit-identical; max abs {err:.3e} from the single card (bar 2e-6), "
+        f"positions, active flags and clock equal; chain wall "
+        f"{wall * 1e3:.3f} ms (single card {one_wall * 1e3:.3f} ms)  [{card}]")
+
+
+def _k5_timed(dev, mesh, card: str) -> dict:
+    """K5 at the 16-file FLAC group's PCM windows over the mesh's data
+    shards, exact against the plain twin, timed beside it, its bound (the
+    function's bytes, as K3's) and one ``index_add_``; also K3 on the whole
+    group and the two halves of K5 (K3 per shard, the psum)."""
+    from audio_decoder_tpu_torch import parallel as P
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    starts, upd, n_out = _flac_windows(dev)["window_add"]
+    S, U = P.shard(starts, mesh), P.shard(upd, mesh)
+    got = PW.window_add_spmd(S, U, n_out, mesh=mesh).value
+    ref = PW.window_add_plain(starts, upd, n_out)
+    lib = _index_add_call([(starts, upd)], n_out)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref) or not torch.equal(lib()[:n_out], ref):
+        fail("K5 window_add_spmd differs from its plain twin at the FLAC group")
+    ms = cuda_ms(lambda: PW.window_add_spmd(S, U, n_out, mesh=mesh), 20)
+    plain_ms = cuda_ms(lambda: PW.window_add_plain(starts, upd, n_out), 10)
+    library_ms = cuda_ms(lib, 20)
+    k3_ms = cuda_ms(lambda: PW.window_add(starts, upd, n_out), 20)
+    shards_ms = cuda_ms(lambda: [PW.window_add(s, u, n_out)
+                                 for s, u in zip(S.shards, U.shards)], 20)
+    parts = [PW.window_add(s, u, n_out) for s, u in zip(S.shards, U.shards)]
+    psum_ms = cuda_ms(lambda: P.psum(parts, mesh), 20)
+    b_ms, by = bound(nbytes(starts, upd) + n_out * got.element_size())
+    log(f"K5 window_add_spmd at the 16-file FLAC group (starts "
+        f"{tuple(starts.shape)} upd {tuple(upd.shape)}, n_out {n_out}) over "
+        f"{mesh.shape['data']} data shards of one card: exact; kernel "
+        f"{ms:.4f} ms per call (K3 per shard {shards_ms:.4f}, psum "
+        f"{psum_ms:.4f}), plain {plain_ms:.4f} ms, index_add_ "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); K3 on the whole "
+        f"group {k3_ms:.4f} ms  [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=by, max_abs_err=0.0, k3_per_shard_ms=shards_ms,
+                psum_ms=psum_ms, k3_whole_ms=k3_ms)
+
+
+def phase_multichip(folder: str, wavs: dict, layer2: bytes, dev, card: str,
+                    seed: int) -> tuple[dict, dict, dict]:
+    """The multi-device path on a logical mesh of 8 shards over one card
+    (data 4 x model 2), then over the real cards where more than one is
+    visible.  Returns ({path: {kernel: launches}} and {kernel: [shape
+    entries]} of the logical mesh, K5's numbers)."""
+    from audio_decoder_tpu_torch import parallel as P
+    from audio_decoder_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    inp = mesh_inputs(folder, layer2, seed)
+    inp["wav_src"] = [wavs[f"w{i:02d}"] for i in range(N_WAV)]
+    ref = _mesh_refs(inp, dev)
+    log(f"mesh inputs and single-card references: "
+        f"{time.perf_counter() - t0:.3f} s")
+    mesh = P.make_mesh(MESH_N, MESH_MODEL, devices=[dev] * MESH_N)
+    nccl0 = M.collectives["psum_nccl"]
+    launches, shapes = _mesh_decodes(mesh, inp, ref, card, "logical 4x2")
+    _mesh_render(mesh, dev, card, "logical 4x2")
+    k5 = _k5_timed(dev, mesh, card)
+    if M.collectives["psum_nccl"] != nccl0:
+        fail("a psum on one card went through NCCL")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        model = 2 if n % 2 == 0 and n >= 4 else 1
+        cards = P.make_mesh(n, model)
+        _mesh_decodes(cards, inp, ref, card, f"{n} cards")
+        _mesh_render(cards, dev, card, f"{n} cards")
+        ran = M.collectives["psum_nccl"] - nccl0
+        log(f"mesh: the cross-card NCCL reduce ran {ran} times over {n} cards")
+        if ran == 0:
+            fail("no psum crossed the cards")
+    else:
+        log("mesh: one card visible, so the cross-card NCCL reduce did not "
+            "run (every psum added its partials on the card)")
+    log(f"multichip phase {time.perf_counter() - t0:.3f} s")
+    return launches, shapes, k5
+
+
+def multichip_only(seed: int) -> None:
+    """``--phase multichip``: the build, the main path's 16 WAV files and a
+    seeded 10 s Layer II stream, then ``phase_multichip`` alone (about a
+    minute; on a machine with several cards, the quick check of the
+    cross-card path)."""
+    from tests import seeded_writers as SW
+
+    card = phase_environment()
+    phase_build()
+    rng = np.random.default_rng(seed + 2)
+    layer2 = SW.layer2_frames(rng, -(-int(SECONDS * RATE) // 1152), 2,
+                              sr=RATE, kbps=192)
+    with tempfile.TemporaryDirectory(prefix="adt_smoke_mesh_") as folder:
+        wavs = write_folder(folder, seed)
+        phase_multichip(folder, wavs, layer2, torch.device("cuda"), card, seed)
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--profile", action="store_true",
                     help="profile one FLAC decode after the other phases")
+    ap.add_argument("--phase", choices=("all", "multichip"), default="all",
+                    help="multichip: the build and the multi-device phase "
+                    "alone")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)  # the numpy writers of tests/
+    if args.phase == "multichip":
+        multichip_only(args.seed)
+        return
 
     card = phase_environment()
     phase_build()
@@ -1984,6 +2393,8 @@ def main() -> None:
                 eng, work, names, card, args.seed, launches)
             phase_engine_render(dev, card, work)
         log(f"engine phases {time.perf_counter() - t2:.3f} s")
+        mesh_launches, mesh_shapes, k5 = phase_multichip(
+            folder, wavs, src["layer2"][0], dev, card, args.seed)
         if args.profile:
             phase_profile(flac_folder, card)
             phase_families_profile(fam_folder, card, dev)
@@ -2006,6 +2417,18 @@ def main() -> None:
             # the Layer I/II path: its launches per decode_dir of the
             # families folder, and K2 at its shapes
             k["layer12"] = dict(launches=k2_families, shapes=k2_shapes)
+        # the multi-device path: each sharded run's launches on the logical
+        # mesh, counted alone, and the kernel on each of its calls' inputs
+        k["multichip"] = dict(
+            launches={path: n[k["name"]] for path, n in mesh_launches.items()
+                      if n[k["name"]]},
+            shapes=mesh_shapes.get(k["name"], []))
+    kernels.append(dict(
+        name="window_add_spmd", route="cuda",
+        source="audio_decoder_tpu_torch/csrc/window_add.cu",
+        replaces="audio_decoder_tpu/ops/window_add.py:184",
+        launches=mesh_launches["flac"]["window_add_spmd"],
+        k3_launches=mesh_launches["flac"]["window_add"], **k5))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -692,7 +692,7 @@ def test_flac_decode_paths_cuda_matches_cpu(cuda_device):
     for bit as on the CPU, through K3 and K4."""
     before = dict(PW.launches)
     gpu = decode_paths(FLAC_FIXTURES, device=cuda_device)
-    assert all(PW.launches[k] > before[k] for k in before)
+    assert all(PW.launches[k] > before[k] for k in ("window_add", "window_add2"))
     cpu = decode_paths(FLAC_FIXTURES, device="cpu")
     assert gpu.names == cpu.names
     for k in ("sample_rate", "num_channels", "bits_per_sample",
@@ -1108,3 +1108,106 @@ def test_cli_render_cuda_within_one_lsb_of_cpu(cuda_device, tmp_path):
         np.testing.assert_array_equal(got.pcm, args.pcm / np.float32(32768))
     assert outs["cuda"].shape == outs["cpu"].shape
     assert np.abs(outs["cuda"] - outs["cpu"]).max() <= 1
+
+
+# ----------------------------------------- the mesh: K5 and the sharded decodes
+
+
+def _logical_mesh(dev, n=4, model=1):
+    """``n`` logical shards on one card (data n // model x model)."""
+    from audio_decoder_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, model, devices=[dev] * n)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+def test_window_add_spmd_on_a_logical_mesh_matches_plain(cuda_device, dtype):
+    """K5 over 4 data shards of one card: K3 once per shard (the last shard
+    holds padding lanes only), one psum, equal to the plain twin."""
+    starts, upd, n_out = window_case(np.random.default_rng(31), 256, 520, 150,
+                                     dtype=dtype)
+    s, u = _on(cuda_device, starts, upd)
+    before = dict(PW.launches)
+    got = PW.window_add_spmd(s, u, n_out, mesh=_logical_mesh(cuda_device))
+    torch.cuda.synchronize()
+    assert PW.launches["window_add"] - before["window_add"] == 4
+    assert PW.launches["window_add_spmd"] - before["window_add_spmd"] == 1
+    assert PW.launches["window_add2"] == before["window_add2"]
+    assert got.value.device.type == "cuda"
+    assert torch.equal(got.value, PW.window_add_plain(s, u, n_out))
+
+
+def test_sharded_wav_decode_on_a_logical_mesh_equals_one_card(cuda_device):
+    from audio_decoder_tpu_torch.dsp.consensus import consensus_config
+    from audio_decoder_tpu_torch.io.assets import pack_bytes
+    from audio_decoder_tpu_torch.parallel import (decode_pcm_step, pad_batch,
+                                                  sharded_decode_fn)
+    from audio_decoder_tpu_torch.parallel.dryrun import wav_blob
+
+    rng = np.random.default_rng(32)
+    pcm = [rng.integers(-32768, 32768, (4000 + 7 * i, 2)).astype(np.int16)
+           for i in range(5)]
+    bufs, lens, valid = pad_batch(*pack_bytes([wav_blob(p, 44100) for p in pcm]), 4)
+    kw = dict(bits=16, channels=2, max_frames=4096)
+    out, meta, rate, ch = sharded_decode_fn(_logical_mesh(cuda_device, 8, 2),
+                                            **kw)(bufs, lens)
+    one, one_meta = decode_pcm_step(*_on(cuda_device, bufs, lens), **kw)
+    assert out.shards[0].device.type == "cuda"
+    assert torch.equal(out.gather(), one)
+    for k in one_meta:
+        assert torch.equal(meta[k].gather(), one_meta[k]), k
+    want = consensus_config(one_meta["sample_rate"], one_meta["channels"],
+                            one_meta["err"])
+    assert (int(rate.value), int(ch.value)) == tuple(int(x) for x in want)
+    assert (one_meta["err"].cpu().numpy()[~valid] != 0).all()
+
+
+def test_sharded_flac_decode_on_a_logical_mesh_equals_one_card(cuda_device):
+    """The music fixture twice and 6 seeded files of distinct content, over
+    4 data shards: K3 3 x 4 times and K4 never, equal to the single-card
+    decode bit for bit."""
+    from audio_decoder_tpu_torch.parallel import round_sizing, sharded_flac_fn
+
+    from . import flac_writer
+
+    rng = np.random.default_rng(33)
+    blobs = [open(FLAC_FIXTURES[0], "rb").read()] * 2 + [
+        flac_writer.encode_file(rng.integers(-9000, 9000, (3000 + 311 * i, 2)),
+                                blocksize=1024) for i in range(6)]
+    analyses = [FF.analyze(b) for b in blobs]
+    sizing = round_sizing(FD.sizing_for(analyses), 4)
+    args, statics = FD.pack_group(analyses, cuda_device, sizing)
+    before = dict(PW.launches)
+    pcm, ovf = sharded_flac_fn(_logical_mesh(cuda_device), **statics)(*args)
+    torch.cuda.synchronize()
+    got = {k: PW.launches[k] - before[k] for k in before}
+    assert got == {"window_add": 12, "window_add2": 0, "window_add_spmd": 3}
+    one, one_ovf = FV.flac_decode_batch(*args, **statics)
+    assert torch.equal(pcm.gather(), one)
+    assert torch.equal(ovf.gather(), one_ovf) and not bool(one_ovf.any())
+
+
+def test_dryrun_multichip_on_a_logical_mesh(cuda_device):
+    """The multi-device dry run on 8 logical shards of one card: every path
+    runs (WAV, MP3, Layer II, FLAC, the render) and holds against one
+    card; K5 launches K3 once per data shard."""
+    from audio_decoder_tpu_torch.codecs.mpeg import frontend as MF
+    from audio_decoder_tpu_torch.parallel import dryrun_multichip
+
+    from . import flac_writer, seeded_writers
+
+    rng = np.random.default_rng(34)
+    mp3 = open(FIXTURES[0], "rb").read()
+    inputs = {"mp3": mp3[:MF.find_frames(mp3)[12][0]],
+              "layer2": seeded_writers.layer2_frames(rng, 3, 2),
+              "flac": flac_writer.encode_file(rng.integers(-3000, 3000, (900, 2)),
+                                              blocksize=256)}
+    out = dryrun_multichip(8, devices=[cuda_device] * 8, inputs=inputs)
+    assert out["mesh"] == {"data": 4, "model": 2}
+    assert out["paths"] == ["wav", "mp3", "layer2", "flac", "render"]
+    n = out["launches"]
+    # the sharded FLAC decode: 3 K5 calls, K3 4 times each; the single
+    # card's: K4 once, K3 once
+    assert (n["window_add_spmd"], n["window_add"], n["window_add2"]) == (3, 13, 1)
+    assert n["mp3_entropy_scan"] > 0 and n["mp3_polyphase_synthesis"] > 0
+    assert n["collective_psum_nccl"] == 0

@@ -39,6 +39,32 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+#: the multi-device layer's public names
+PARALLEL_NAMES = ["make_mesh", "pad_batch", "sharded_decode_fn",
+                  "sharded_mp3_decode_fn", "sharded_l12_fn", "sharded_flac_fn",
+                  "state_shardings", "shard_engine_state", "sharded_render_fn",
+                  "dryrun_multichip"]
+
+
+def test_parallel_layer_imports_without_jax():
+    """The multi-device layer (parallel/ and K5's wrapper) provides its names
+    and pulls in neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "from audio_decoder_tpu_torch import parallel as P\n"
+        "from audio_decoder_tpu_torch.ops.window_add import window_add_spmd\n"
+        f"missing = [n for n in {PARALLEL_NAMES!r} if not callable(getattr(P, n, None))]\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'audio_decoder_tpu' or k.startswith('audio_decoder_tpu.'))\n"
+        "print(repr((missing, bad)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "([], [])"
+
+
 def test_sources_never_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import audio_decoder_tpu\b"
                      r"|from audio_decoder_tpu\b(?!_torch))", re.M)
