@@ -29,9 +29,9 @@ see q > Q_CAP raise the per-file overflow flag.
 
 Over a mesh (``flac_decode_batch(..., mesh=)``, parallel/decode.py's
 ``sharded_flac_fn``) the lanes and frames shard over ``data`` and the
-assemblies are K5 calls (ops/window_add.window_add_spmd: K3 per shard plus
-one psum), two for the values and one for the PCM, as in the JAX
-package's mesh route.
+assemblies are K5 calls (ops/window_add.window_add_spmd: one kernel
+launch per card over its shards, then a psum across cards), two for the
+values and one for the PCM, as in the JAX package's mesh route.
 """
 
 from __future__ import annotations
@@ -361,8 +361,9 @@ def _decode_on_mesh(mesh, bytes_u8, file_off, file_bits, *desc, channels: int,
     Each data shard scans its own lanes, on its own device, against the
     whole per-file ``limit`` (an all-gather of two ``[B]`` arrays: lanes
     index files globally).  The values are two K5 calls
-    (ops/window_add.window_add_spmd), K3 per shard plus one psum each, so
-    every data shard's device holds all of them (lanes index subframe rows
+    (ops/window_add.window_add_spmd), one kernel launch per card over its
+    shards plus a psum across cards each, so every data shard's device
+    holds all of them (lanes index subframe rows
     globally); the outliers are added once to that sum there.  The sums go
     to the ``data`` devices only: the devices of model j > 0 read none of
     a decode's results.  Each shard then

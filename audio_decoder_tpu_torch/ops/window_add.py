@@ -25,8 +25,13 @@ falls back.  For CPU tensors they run the plain twins.  Any other device
 raises.  ``launches`` counts wrapper calls that launched their kernels.
 
 ``window_add_spmd`` is the port of the mesh-sharded ``window_add_spmd``
-(K5): K3 on each data shard's lanes into a full-size partial, then one
-``psum`` over the shards (parallel/mesh.py).
+(K5): on each card one launch of ``csrc/window_add.cu``'s kernels over
+every data shard there (each shard one lane set, in its own allocation or
+not; the workspace from ``plan_sizes_spmd``), which writes each output
+element once; only the per-card results meet in ``psum``
+(parallel/mesh.py), which adds nothing on one card.
+``window_add_spmd_plain`` is its plain twin.  K3 is the one-set case of
+the same kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +45,10 @@ import torch
 from ..utils import build
 
 #: times each CUDA kernel was launched in this process
-launches = {"window_add": 0, "window_add2": 0, "window_add_spmd": 0}
+#: (``window_add_spmd``: wrapper calls that launched on a card;
+#: ``window_add_spmd_kernel``: its launches, one per card)
+launches = {"window_add": 0, "window_add2": 0, "window_add_spmd": 0,
+            "window_add_spmd_kernel": 0}
 
 
 #: window_add.cu's output tile, the lane-elements of one unit of work and
@@ -51,6 +59,10 @@ ROW_WORK1 = 1024
 #: window_add.cu's workspace, in order: (name, element bytes)
 WS_PARTS1 = (("sorted", 4), ("cmax", 4), ("recs", 16), ("tcnt", 4),
              ("heavy_total", 4), ("unit_tile", 4), ("gcnt", 4), ("scratch", 4))
+#: K5's workspace: K3's, then each tile's run per lane set
+WS_PARTS_SPMD = WS_PARTS1 + (("runs", 8),)
+#: lane sets (data shards on one card) one K5 launch takes
+MAX_SETS = 64
 
 
 def _declare(lib: C.CDLL) -> None:
@@ -62,12 +74,20 @@ def _declare(lib: C.CDLL) -> None:
     lib.window_add_launch.restype = i
     lib.window_add_launch.argtypes = ([p, i, p, i, ll, i, p]
                                       + [p] * len(WS_PARTS1) + [i, i, p])
+    lib.window_add_spmd_launch.restype = i
+    lib.window_add_spmd_launch.argtypes = (
+        [i, C.POINTER(p), C.POINTER(p), C.POINTER(i), i, ll, i, p]
+        + [p] * len(WS_PARTS_SPMD) + [i, i, p])
+    lib.window_add_max_sets.restype = i
+    lib.window_add_max_sets.argtypes = []
     lib.window_add_blocks_per_sm.restype = i
     lib.window_add_blocks_per_sm.argtypes = []
-    got = (lib.window_add_tile(), lib.window_add_unit_work())
-    if got != (TILE1, UNIT_WORK1):
-        raise build.BuildError(f"window_add: the library's tile and unit "
-                               f"{got} differ from ({TILE1}, {UNIT_WORK1})")
+    got = (lib.window_add_tile(), lib.window_add_unit_work(),
+           lib.window_add_max_sets())
+    if got != (TILE1, UNIT_WORK1, MAX_SETS):
+        raise build.BuildError(f"window_add: the library's tile, unit and "
+                               f"sets {got} differ from ({TILE1}, "
+                               f"{UNIT_WORK1}, {MAX_SETS})")
 
 
 #: window_add2.cu's output tile, the lane-elements of one unit of work and
@@ -102,7 +122,7 @@ def _declare2(lib: C.CDLL) -> None:
 
 
 def load_library() -> C.CDLL:
-    """Build (first use) and load K3's kernel library."""
+    """Build (first use) and load K3's and K5's kernel library."""
     return build.load_cuda_kernels("window_add", _declare)
 
 
@@ -160,6 +180,23 @@ def plan_sizes1(L: int, W: int, n_out: int) -> Plan:
               "heavy_total": 1, "unit_tile": heavy, "gcnt": heavy,
               "scratch": heavy * TILE1}
     return _layout(nt, heavy, chunk, WS_PARTS1, counts)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_sizes_spmd(lengths: tuple, W: int, n_out: int) -> Plan:
+    """window_add.cu's grid and workspace for K5's lane sets of ``lengths``
+    lanes each (one width): K3's sizing over all the sets' lanes, plus
+    each tile's run per set."""
+    nt = -(-n_out // TILE1)
+    heavy = _heavy_bound([(L, W) for L in lengths], TILE1, ROW_WORK1,
+                         UNIT_WORK1)
+    chunk = _chunk(*lengths)
+    counts = {"sorted": sum(lengths),
+              "cmax": sum(-(-L // chunk) for L in lengths), "recs": nt,
+              "tcnt": nt, "heavy_total": 1, "unit_tile": heavy,
+              "gcnt": heavy, "scratch": heavy * TILE1,
+              "runs": nt * len(lengths)}
+    return _layout(nt, heavy, chunk, WS_PARTS_SPMD, counts)
 
 
 @functools.lru_cache(maxsize=64)
@@ -258,6 +295,53 @@ def _window_add1_cuda(starts: torch.Tensor, upd: torch.Tensor, n_out: int,
     return out
 
 
+def _window_add_spmd_cuda(sets, n_out: int, lib=None,
+                          stream=None) -> torch.Tensor:
+    """Launch ``csrc/window_add.cu``'s K5 (or ``lib``, a library with its
+    interface) once for the lane sets ``sets`` [(starts, upd), ...] of one
+    card (each set one data shard, in its own allocation or not) on
+    ``stream`` (default: the current one): their sum, written once."""
+    dev, dtype = sets[0][1].device, sets[0][1].dtype
+    W = sets[0][1].shape[-1]
+    for s, u in sets:  # one test per set; _check_set names a fault
+        if not (s.dtype == torch.int32 and u.dtype == dtype and s.dim() == 1
+                and u.dim() == 2 and u.shape[0] == s.shape[0]
+                and u.shape[1] == W and s.device == dev and u.device == dev
+                and s.is_contiguous() and u.is_contiguous()):
+            _check_set("window_add_spmd", s, u, dev, dtype)
+            raise ValueError(f"window_add_spmd: one width for every set, got "
+                             f"{[tuple(v.shape) for _, v in sets]}")
+    if dtype not in (torch.int32, torch.float32):
+        _check_set("window_add_spmd", *sets[0], dev, dtype)
+    if not 1 <= len(sets) <= MAX_SETS:
+        raise ValueError(f"window_add_spmd: 1 to {MAX_SETS} lane sets per "
+                         f"card, got {len(sets)}")
+    if not 0 <= n_out < 2**31:
+        raise ValueError(f"window_add_spmd: n_out must be in [0, 2^31), got "
+                         f"{n_out}")
+    lib = lib or load_library()
+    lengths = tuple(int(s.shape[0]) for s, _ in sets)
+    plan = plan_sizes_spmd(lengths, W, n_out)
+    ws = torch.empty((plan.nbytes,), dtype=torch.uint8, device=dev)
+    out = torch.empty((n_out,), dtype=dtype, device=dev)
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    n = len(sets)
+    starts = (C.c_void_p * n)(*[s.data_ptr() for s, _ in sets])
+    upd = (C.c_void_p * n)(*[u.data_ptr() for _, u in sets])
+    lens = (C.c_int * n)(*lengths)
+    base = ws.data_ptr()
+    with _card(dev):
+        rc = lib.window_add_spmd_launch(
+            n, starts, upd, lens, W, n_out, int(dtype == torch.float32),
+            out.data_ptr(), *[base + o for o in plan.offsets], plan.chunk,
+            plan.heavy, stream)
+    if rc != 0:
+        raise RuntimeError(f"window_add_spmd launch failed: CUDA error {rc}")
+    launches["window_add_spmd_kernel"] += 1
+    return out
+
+
 def _window_add2_cuda(sets, n_out: int, lib=None, stream=None) -> torch.Tensor:
     """Launch ``csrc/window_add2.cu`` (or ``lib``, a library with its
     interface) for two lane sets on ``stream`` (default: the current one)."""
@@ -313,6 +397,16 @@ def window_add2(starts_a: torch.Tensor, upd_a: torch.Tensor,
                      _window_add2_cuda)
 
 
+def window_add_spmd_plain(shard_starts, shard_upd, n_out: int) -> torch.Tensor:
+    """Plain torch K5: ``window_add_plain`` of each shard, summed in shard
+    order (the JAX package's psum of full-size partials)."""
+    out = None
+    for s, u in zip(shard_starts, shard_upd):
+        part = window_add_plain(s, u, n_out)
+        out = part if out is None else out + part
+    return out
+
+
 def window_add_spmd(starts, upd, n_out: int, *, mesh, axis: str = "data",
                     to=None):
     """Mesh-sharded ``window_add`` (K5): lane-sharded inputs → the
@@ -320,18 +414,28 @@ def window_add_spmd(starts, upd, n_out: int, *, mesh, axis: str = "data",
     mesh device), a ``Replicated``.
 
     ``starts``/``upd`` are ``Sharded`` over ``axis`` (or whole tensors,
-    cut here).  Each shard's lanes are a contiguous slice of the start-
-    sorted lane array, so K3's contract holds per shard; a shard of
-    padding lanes only adds zeros.  K3 (its plain twin on the CPU) runs
-    once per shard, on that shard's device, into a full ``[n_out]``
-    partial, and the partials meet in one ``psum``.  In FLAC the live
-    windows tile the output, so each element gets one nonzero term and the
-    sum is exact."""
+    cut here).  K3's contract must hold per shard only; a shard of padding
+    lanes only adds zeros.  The shards that share a device are summed
+    there in shard order: on a card by one K5 launch over all of them, on
+    the CPU by the plain twin.  The per-device sums then meet in one
+    ``psum``, which adds only across cards.  In FLAC the live windows tile
+    the output, so each element gets one nonzero term and the sum is
+    exact."""
     from ..parallel import mesh as M
 
     s, u = M.shard(starts, mesh, axis), M.shard(upd, mesh, axis)
-    partials = [window_add(a, b, n_out) for a, b in zip(s.shards, u.shards)]
-    out = M.psum(partials, mesh, to)
-    if partials[0].device.type == "cuda":
+    per_device: dict = {}
+    for a, b in zip(s.shards, u.shards):
+        per_device.setdefault(b.device, []).append((a, b))
+    sums = []
+    for dev, sets in per_device.items():
+        if dev.type == "cpu":
+            sums.append(window_add_spmd_plain(*zip(*sets), n_out))
+        elif dev.type == "cuda":
+            sums.append(_window_add_spmd_cuda(sets, n_out))
+        else:
+            raise ValueError(f"window_add_spmd: unsupported device {dev}")
+    out = M.psum(sums, mesh, to)
+    if any(d.type == "cuda" for d in per_device):
         launches["window_add_spmd"] += 1
     return out

@@ -193,8 +193,8 @@ def all_gather(x: Sharded, mesh: Mesh, to: Sequence | None = None) -> Replicated
 def psum(partials: Sequence[torch.Tensor], mesh: Mesh,
          to: Sequence | None = None) -> Replicated:
     """The sum of equal-shape ``partials`` (one per shard, each on its
-    shard's device) on every device of ``to`` (default: every mesh
-    device).
+    shard's device, or one per device, as K5 gives its per-card sums) on
+    every device of ``to`` (default: every mesh device).
 
     Partials that share a device are added there in the order given; the
     per-device sums of distinct CUDA devices are then reduced with NCCL and

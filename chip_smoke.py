@@ -108,17 +108,21 @@ Phases:
      same inputs (WAV and FLAC bit for bit, FLAC also against every file's
      MD5; MP3 and Layer II bit for bit or else within amplitude-scaled RMS
      5e-7, the max abs difference printed), each run's launches counted
-     alone (K1 and K2 once per data shard, K3 3 x 4 times and K4 never in
-     the FLAC decode, i.e. K5 three times), each K1, K2 and K3 call's
-     inputs kept and the kernel held against its twin on them (K1 and K3
-     exactly, K2 within atol 1e-4 / rtol 1e-5) and timed, and the wall of
-     a second run beside the single card's; bench.py's render over
-     ``model`` (two chains of 64 blocks bit-identical, each block within
-     2e-6 of the single-card render, positions equal); K5 at the 16-file
-     FLAC group's PCM windows over the 4 data shards, exact against its
-     plain twin and timed beside it, its bound and ``index_add_``.  Where
-     more than one card is visible it repeats the decodes and the render
-     over the cards and prints how often the cross-card NCCL reduce ran.
+     alone (K1 and K2 once per data shard; in the FLAC decode K5 three
+     times, its kernel once per card each, K3 and K4 never), each K1 and
+     K2 call's and each K5 kernel launch's inputs kept and the kernel held
+     against its twin on them (K1 and K5 exactly, K2 within atol 1e-4 /
+     rtol 1e-5) and timed, and the wall of a second run beside the single
+     card's; bench.py's render over ``model`` (two chains of 64 blocks
+     bit-identical, each block within 2e-6 of the single-card render,
+     positions equal); K5 at the 16-file FLAC group's PCM rows and its two
+     value sets over the 4 data shards, as views of one buffer and as
+     separate allocations, exact against its plain twin and timed beside
+     it, its first design (K3 per shard plus the adds, in the same call),
+     its bound, ``index_add_`` and K3 on the whole set, with the memory
+     each design allocates per call.  Where more than one card is visible
+     it repeats the decodes and the render over the cards and prints how
+     often the cross-card NCCL reduce ran.
 
 With ``--profile`` it then profiles one decode of the 16 FLAC files with
 torch.profiler and prints each FLAC stage's host and device time (the
@@ -209,6 +213,24 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the device with every call's launches
+    queued behind a sleep kernel first, so that the host's time to issue
+    them drops out: the device-bound time (CUDA events).  ``fn`` must not
+    synchronise with the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than issuing the calls
     start.record()
     for _ in range(reps):
         fn()
@@ -1683,14 +1705,23 @@ def _render_cli(folder: str, script: str, out: str, platform: str):
     return args, time.perf_counter() - t0
 
 
+def _copied(a):
+    """``a`` with every tensor in it (also inside lists and tuples) cloned."""
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_copied(x) for x in a)
+    return a
+
+
 @contextlib.contextmanager
 def _captured_kernel_inputs():
-    """Inside the block every call of a K1-K4 wrapper first keeps a copy of
+    """Inside the block every call of a K1-K5 wrapper first keeps a copy of
     its inputs: yields {kernel: [(args, kwargs), ...]}.  K1 and K2 are
     looked up in their modules at each call, K3 and K4 where the FLAC
-    device program bound them, and K3 also in its own module, where K5
-    (``window_add_spmd``) calls it once per shard; the wrappers are
-    restored after."""
+    device program bound them, and K5 at its per-card launch
+    (``window_add._window_add_spmd_cuda``: the card's lane sets and
+    n_out); the wrappers are restored after."""
     from audio_decoder_tpu_torch.codecs.flac import device as FV
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
     from audio_decoder_tpu_torch.ops import synth_kernel as SK
@@ -1701,13 +1732,12 @@ def _captured_kernel_inputs():
              (SK, "polyphase_synthesis_blocks", "mp3_polyphase_synthesis"),
              (FV, "window_add2", "window_add2"),
              (FV, "window_add", "window_add"),
-             (PW, "window_add", "window_add")]
+             (PW, "_window_add_spmd_cuda", "window_add_spmd")]
     saved = [getattr(mod, attr) for mod, attr, _ in slots]
 
     def keeping(fn, key):
         def call(*args, **kw):
-            seen.setdefault(key, []).append(
-                (tuple(a.clone() if torch.is_tensor(a) else a for a in args), kw))
+            seen.setdefault(key, []).append((_copied(args), kw))
             return fn(*args, **kw)
         return call
 
@@ -1721,10 +1751,11 @@ def _captured_kernel_inputs():
 
 
 def captured_kernels(seen: dict, where: str) -> dict:
-    """K1-K4 against their twins on the very inputs a run gave them
+    """K1-K5 against their twins on the very inputs a run gave them
     (``_captured_kernel_inputs``), each call timed beside its twin on its
     inputs' card: K1 per bucket exactly, K2 per group within atol 1e-4 /
-    rtol 1e-5, K4 and K3 exactly.  Returns {kernel: [shape entries]}."""
+    rtol 1e-5, K4, K3 and K5 (per card) exactly.  Returns {kernel: [shape
+    entries]}."""
     out: dict = {}
 
     def on_card(key, args, timed, *rest):
@@ -1742,7 +1773,72 @@ def captured_kernels(seen: dict, where: str) -> dict:
         for i, (args, _kw) in enumerate(seen.get(name, [])):
             on_card(name, args, _window_timed, f"{where}'s call {i}", name,
                     args[:-1], args[-1])
+    for i, ((sets, n_out), _kw) in enumerate(seen.get("window_add_spmd", [])):
+        on_card("window_add_spmd", sets[0], _k5_call_timed,
+                f"{where}'s K5 launch {i}", sets, n_out)
     return out
+
+
+def _k5_first_design(sets, n_out: int):
+    """K5 as it was first ported, kept here as a yardstick: K3 into a
+    full-size partial per shard, the partials added in shard order (the
+    on-card part of that design's psum)."""
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    out = None
+    for s, u in sets:
+        part = PW.window_add(s, u, n_out)
+        out = part if out is None else out + part
+    return out
+
+
+def _alloc_mb(fn) -> float:
+    """Megabytes of device memory ``fn()`` allocates beyond what it returns
+    (its workspaces and partials), from the allocator's peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - base
+    extra = torch.cuda.max_memory_allocated() - base - kept
+    del out
+    return extra / 1e6
+
+
+def _k5_call_timed(label: str, sets, n_out: int) -> dict:
+    """One card's K5 launch on ``sets`` [(starts, upd) per shard] against
+    ``window_add_spmd_plain`` exactly, timed (CUDA events, ms per call)
+    beside it, one ``index_add_`` of the same sum, the first design (K3 per
+    shard plus the adds; the two in turns) and the bytes bound."""
+    from audio_decoder_tpu_torch.ops import window_add as PW
+
+    starts, upd = [s for s, _ in sets], [u for _, u in sets]
+    got = PW._window_add_spmd_cuda(sets, n_out)
+    ref = PW.window_add_spmd_plain(starts, upd, n_out)
+    lib = _index_add_call(sets, n_out)
+    torch.cuda.synchronize()
+    if got.dtype != ref.dtype or not torch.equal(got, ref):
+        fail(f"K5 at the {label} differs from its plain twin")
+    if not torch.equal(lib()[:n_out], ref):
+        fail(f"K5 at the {label}: index_add_ differs from the plain twin")
+    # the two designs in turns: new, first, first, new
+    ms = cuda_ms(lambda: PW._window_add_spmd_cuda(sets, n_out), 50)
+    first_ms = cuda_ms(lambda: _k5_first_design(sets, n_out), 20)
+    first_ms2 = cuda_ms(lambda: _k5_first_design(sets, n_out), 20)
+    ms2 = cuda_ms(lambda: PW._window_add_spmd_cuda(sets, n_out), 50)
+    plain_ms = cuda_ms(lambda: PW.window_add_spmd_plain(starts, upd, n_out), 10)
+    library_ms = cuda_ms(lib, 20)
+    b_ms, by = bound(nbytes(*starts, *upd) + n_out * got.element_size())
+    shapes = [list(u.shape) for u in upd]
+    log(f"K5 at the {label}: shards {shapes} {upd[0].dtype}, n_out {n_out}: "
+        f"exact; kernel {ms:.4f} / {ms2:.4f} ms, first design {first_ms:.4f} "
+        f"/ {first_ms2:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return dict(shape=shapes, n_out=n_out, max_abs_err=0, ms=ms, ms_again=ms2,
+                first_design_ms=first_ms, first_design_ms_again=first_ms2,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=library_ms)
 
 
 def phase_engine_cli(folder: str, work: str, names: list, card: str,
@@ -1775,7 +1871,8 @@ def phase_engine_cli(folder: str, work: str, names: list, card: str,
     want = {"mp3_entropy_scan": main_launches["mp3_entropy_scan"],
             "mp3_polyphase_synthesis":
                 main_launches["mp3_polyphase_synthesis"] + 1,
-            "window_add2": 1, "window_add": 1, "window_add_spmd": 0}
+            "window_add2": 1, "window_add": 1, "window_add_spmd": 0,
+            "window_add_spmd_kernel": 0}
     calls = {k: len(seen.get(k, [])) for k in want}
     if launches != want or calls != want:
         fail(f"the engine's decode launched {launches} in {calls} wrapper "
@@ -2106,7 +2203,7 @@ def _close_or_equal(label: str, ref: torch.Tensor, got: torch.Tensor) -> str:
 def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
                   label: str) -> tuple[dict, dict]:
     """Every sharded decode on ``mesh``, each counted alone and held against
-    the single-card result, and every K1, K2 and K3 call of the MP3, Layer
+    the single-card result, and every K1, K2 and K5 call of the MP3, Layer
     II and FLAC runs held against its twin on that call's inputs
     (``captured_kernels``); returns ({path: {kernel: launches}}, {kernel:
     [shape entries]})."""
@@ -2179,7 +2276,10 @@ def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
         ints = np.round(got[i, :a.total * 2].astype(np.float64) * 32768)
         if frontend.verify_md5(a, ints.astype(np.int64).reshape(a.total, 2)) is not True:
             fail(f"mesh {label} FLAC short file {i} fails its MD5")
-    want = {"window_add": 3 * D, "window_add2": 0, "window_add_spmd": 3}
+    # K5 three times, one kernel launch per card each; K3 and K4 never
+    cards = len(set(mesh.axis_devices("data")))
+    want = {"window_add": 0, "window_add2": 0, "window_add_spmd": 3,
+            "window_add_spmd_kernel": 3 * cards}
     if {k: counts[k] for k in want} != want:
         fail(f"mesh {label} FLAC launched {counts}, want {want}")
     launches["flac"] = counts
@@ -2193,12 +2293,12 @@ def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
             fail(f"mesh {label} {path} launched {launches[path]}, want {want}")
     calls = {k: len(v) for k, v in seen_all.items()}
     want = {"mp3_entropy_scan": D, "mp3_polyphase_synthesis": 2 * D,
-            "window_add": 3 * D}
+            "window_add_spmd": 3 * cards}
     if calls != want:
         fail(f"mesh {label}: the kernels' wrappers were called {calls} "
              f"times, want {want}")
     shapes = captured_kernels(seen_all, f"mesh {label}")
-    log(f"mesh {label}: every K1, K2 and K3 call of the sharded MP3, Layer "
+    log(f"mesh {label}: every K1, K2 and K5 call of the sharded MP3, Layer "
         f"II and FLAC runs ({calls}) held against its twin on its inputs")
     return launches, shapes
 
@@ -2249,40 +2349,75 @@ def _mesh_render(mesh, dev, card: str, label: str) -> None:
 
 
 def _k5_timed(dev, mesh, card: str) -> dict:
-    """K5 at the 16-file FLAC group's PCM windows over the mesh's data
-    shards, exact against the plain twin, timed beside it, its bound (the
-    function's bytes, as K3's) and one ``index_add_``; also K3 on the whole
-    group and the two halves of K5 (K3 per shard, the psum)."""
+    """K5 at the 16-file FLAC group over the mesh's data shards: its PCM
+    rows (f32 [2048, 8192]) and its two value sets (i32 rice [65536, 256]
+    and fixed-width [4096, 8]), each cut into the data shards once as views
+    of one buffer and once as separate allocations.  Each is exact against
+    the plain twin and timed as ``_k5_call_timed`` times a captured launch,
+    and also: the whole ``window_add_spmd`` call (its launch plus the psum),
+    K3 on the whole set, the device-bound time of the launch, of the first
+    design, of K3 and of ``index_add_`` (``queued_ms``: the host's issue
+    time drops out), and the device memory each design allocates per call.
+    Returns the PCM views' numbers, every entry under ``shapes``."""
     from audio_decoder_tpu_torch import parallel as P
     from audio_decoder_tpu_torch.ops import window_add as PW
 
-    starts, upd, n_out = _flac_windows(dev)["window_add"]
-    S, U = P.shard(starts, mesh), P.shard(upd, mesh)
-    got = PW.window_add_spmd(S, U, n_out, mesh=mesh).value
-    ref = PW.window_add_plain(starts, upd, n_out)
-    lib = _index_add_call([(starts, upd)], n_out)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref) or not torch.equal(lib()[:n_out], ref):
-        fail("K5 window_add_spmd differs from its plain twin at the FLAC group")
-    ms = cuda_ms(lambda: PW.window_add_spmd(S, U, n_out, mesh=mesh), 20)
-    plain_ms = cuda_ms(lambda: PW.window_add_plain(starts, upd, n_out), 10)
-    library_ms = cuda_ms(lib, 20)
-    k3_ms = cuda_ms(lambda: PW.window_add(starts, upd, n_out), 20)
-    shards_ms = cuda_ms(lambda: [PW.window_add(s, u, n_out)
-                                 for s, u in zip(S.shards, U.shards)], 20)
-    parts = [PW.window_add(s, u, n_out) for s, u in zip(S.shards, U.shards)]
-    psum_ms = cuda_ms(lambda: P.psum(parts, mesh), 20)
-    b_ms, by = bound(nbytes(starts, upd) + n_out * got.element_size())
-    log(f"K5 window_add_spmd at the 16-file FLAC group (starts "
-        f"{tuple(starts.shape)} upd {tuple(upd.shape)}, n_out {n_out}) over "
-        f"{mesh.shape['data']} data shards of one card: exact; kernel "
-        f"{ms:.4f} ms per call (K3 per shard {shards_ms:.4f}, psum "
-        f"{psum_ms:.4f}), plain {plain_ms:.4f} ms, index_add_ "
-        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); K3 on the whole "
-        f"group {k3_ms:.4f} ms  [{card}]")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=by, max_abs_err=0.0, k3_per_shard_ms=shards_ms,
-                psum_ms=psum_ms, k3_whole_ms=k3_ms)
+    w = _flac_windows(dev)
+    n_vals = w["window_add2"][4]
+    groups = (("PCM", *w["window_add"]),
+              ("rice values", *w["window_add2"][0:2], n_vals),
+              ("fixed-width values", *w["window_add2"][2:4], n_vals))
+    D = mesh.shape["data"]
+    entries = []
+    for what, starts, upd, n_out in groups:
+        c = starts.shape[0] // D
+        views = [(starts[i * c:(i + 1) * c], upd[i * c:(i + 1) * c])
+                 for i in range(D)]
+        for layout, sets in (("views", views),
+                             ("separate", [(s.clone(), u.clone())
+                                           for s, u in views])):
+            S = P.Sharded(tuple(s for s, _ in sets))
+            U = P.Sharded(tuple(u for _, u in sets))
+
+            def call():
+                return PW.window_add_spmd(S, U, n_out, mesh=mesh)
+
+            label = f"16-file FLAC group's {what}, {layout}"
+            if not torch.equal(call().value, PW.window_add_spmd_plain(
+                    S.shards, U.shards, n_out)):
+                fail(f"K5 differs from its plain twin at the {label}")
+            e = _k5_call_timed(label, sets, n_out)
+            e.update(what=what, layout=layout, shards=D,
+                     call_ms=cuda_ms(call, 50),
+                     k3_whole_ms=cuda_ms(
+                         lambda: PW.window_add(starts, upd, n_out), 50),
+                     alloc_mb=_alloc_mb(call),
+                     first_design_alloc_mb=_alloc_mb(
+                         lambda: _k5_first_design(sets, n_out)))
+            lib = _index_add_call(sets, n_out)
+            e["queued"] = {
+                "launch": queued_ms(
+                    lambda: PW._window_add_spmd_cuda(sets, n_out), 20),
+                "first_design": queued_ms(
+                    lambda: _k5_first_design(sets, n_out), 20),
+                "k3_whole": queued_ms(
+                    lambda: PW.window_add(starts, upd, n_out), 20),
+                "index_add_": queued_ms(lib, 20)}
+            q = e["queued"]
+            log(f"K5 at the {label} over {D} data shards of one card: launch "
+                f"{e['ms']:.4f} ms, the whole call {e['call_ms']:.4f} ms, K3 "
+                f"on the whole set {e['k3_whole_ms']:.4f} ms (launch / K3 "
+                f"{e['ms'] / e['k3_whole_ms']:.2f}); device-bound (queued): "
+                f"launch {q['launch']:.4f}, first design "
+                f"{q['first_design']:.4f}, K3 on the whole set "
+                f"{q['k3_whole']:.4f}, index_add_ {q['index_add_']:.4f} ms "
+                f"(launch / K3 {q['launch'] / q['k3_whole']:.2f}); allocated "
+                f"per call {e['alloc_mb']:.3f} MB (first design "
+                f"{e['first_design_alloc_mb']:.3f} MB)  [{card}]")
+            entries.append(e)
+    top = {k: v for k, v in entries[0].items()
+           if k not in ("what", "layout", "shards", "shape", "n_out")}
+    return dict(top, shapes=entries)
 
 
 def phase_multichip(folder: str, wavs: dict, layer2: bytes, dev, card: str,
@@ -2423,12 +2558,18 @@ def main() -> None:
             launches={path: n[k["name"]] for path, n in mesh_launches.items()
                       if n[k["name"]]},
             shapes=mesh_shapes.get(k["name"], []))
+    # K5: its kernel's launches in the sharded FLAC decode (one per call on
+    # the one card of the logical mesh), its wrapper calls, the K3 launches
+    # it made (none), the kernel on each launch's inputs there, and its
+    # numbers at the 16-file group (the PCM rows as views on top)
     kernels.append(dict(
         name="window_add_spmd", route="cuda",
         source="audio_decoder_tpu_torch/csrc/window_add.cu",
         replaces="audio_decoder_tpu/ops/window_add.py:184",
-        launches=mesh_launches["flac"]["window_add_spmd"],
-        k3_launches=mesh_launches["flac"]["window_add"], **k5))
+        launches=mesh_launches["flac"]["window_add_spmd_kernel"],
+        calls=mesh_launches["flac"]["window_add_spmd"],
+        k3_launches=mesh_launches["flac"]["window_add"],
+        multichip=dict(shapes=mesh_shapes.get("window_add_spmd", [])), **k5))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

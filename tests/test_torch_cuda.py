@@ -11,7 +11,9 @@ suite's JAX conftest:
 ``window_case`` also serves the CPU tests of the window-add twins
 (tests/test_torch_window_add.py), so both hold the same cases; so do
 ``window1_case`` (K3's own edges), which also serves
-tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges) does.
+tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges) and
+``spmd_case`` (K5's) do; ``spmd_shards`` also builds the CPU tests' K5
+cases (tests/test_torch_parallel.py).
 """
 
 import dataclasses
@@ -135,6 +137,103 @@ def window1_case(cid: str):
         return np.zeros(0, np.int32), np.zeros((0, 8192), np.float32), 4099
     if cid == "n-out-0":
         return window_case(rng, 6, 8192, 4, dtype=np.float32)[:2] + (0,)
+    raise KeyError(cid)
+
+
+def spmd_shards(rng, lanes, W, live, dtype=np.int32, order=None,
+                frames=False):
+    """Lane sets as K5 gets them, one per data shard: shard k has
+    ``lanes[k]`` lanes, the first ``live[k]`` of them live windows that tile
+    the shard's own output range (``window_case``; with ``frames``, full
+    rows at multiples of W, like FLAC's stereo frames), the rest padding
+    lanes at start 0.  The ranges follow each other in the output in the
+    shard order ``order`` (default: 0, 1, ...), so a shard's starts may lie
+    below the shard's before it.  Returns ([(starts, upd), ...], the end of
+    the last range)."""
+    order = list(range(len(lanes))) if order is None else order
+    sets, sizes = [], []
+    for L, n_live in zip(lanes, live):
+        if frames:
+            starts = np.zeros(L, np.int32)
+            starts[:n_live] = np.arange(n_live) * W
+            upd = np.zeros((L, W), dtype)
+            upd[:n_live] = _values(rng, (n_live, W), dtype)
+            size = n_live * W + 4096 + 37
+        else:
+            starts, upd, size = window_case(rng, L, W, n_live, dtype=dtype)
+        sets.append((starts, upd))
+        sizes.append(size)
+    at = 0
+    for k in order:
+        starts, _ = sets[k]
+        starts[:live[k]] += at
+        at += sizes[k]
+    return sets, at
+
+
+#: ids of ``spmd_case``: K5's own edges
+SPMD_CASES = ("frames-f32", "frames-i32", "unordered-f32", "unordered-i32",
+              "eight-shards-f32", "eight-shards-i32",
+              "padding-shard-between-f32", "padding-shard-between-i32",
+              "pile-up-middle-f32", "pile-up-middle-i32", "truncated-f32",
+              "truncated-i32", "odd-width-f32", "two-chunk-shards-i32",
+              "narrow-pile-ups-i32", "uneven-shards-i32", "overlap-i32",
+              "no-lanes-f32", "n-out-0-f32")
+
+
+def spmd_case(cid: str):
+    """([(starts, upd), ...] per data shard, n_out) of K5's edge ``cid``,
+    from a fixed numpy seed: FLAC's frame rows over 4 shards; shards whose
+    output ranges come in another order than the shards (shard 1 below
+    shard 0); 8 shards; a padding-only shard of 330 rows between live ones
+    (its zeros pile onto start 0, in tiles that also hold shard 0's rows);
+    320 padding rows piled onto the last live start of a middle shard (a
+    tile of 321 rows); n_out cutting the last windows; rows that are not 16-byte aligned; shards of more lanes than one
+    running-max chunk with a start below one of the chunk before; narrow
+    rows piled up in every shard; shards of other lengths, one empty;
+    int32 windows that overlap within and across shards (exact on any
+    input); no lanes; n_out = 0.  Every float32 case has at most one
+    nonzero term per output element."""
+    rng = np.random.default_rng(sum(map(ord, cid)) + 1)
+    dtype = np.float32 if cid.endswith("-f32") else np.int32
+    base = cid.rsplit("-", 1)[0]
+    if base == "frames":
+        return spmd_shards(rng, [20] * 4, 8192, [14, 14, 14, 8], dtype,
+                           frames=True)
+    if base == "unordered":
+        return spmd_shards(rng, [24] * 4, 1000, [20, 18, 24, 9], dtype,
+                           order=[1, 0, 3, 2])
+    if base == "eight-shards":
+        return spmd_shards(rng, [16] * 8, 700, [16, 3, 12, 0, 16, 9, 5, 14],
+                           dtype, order=[2, 0, 1, 3, 7, 6, 5, 4])
+    if base == "padding-shard-between":
+        return spmd_shards(rng, [330] * 3, 8192, [12, 0, 7], dtype)
+    if base == "pile-up-middle":
+        return spmd_shards(rng, [330] * 3, 8192, [20, 10, 30], dtype)
+    if base == "truncated":
+        sets, n_out = spmd_shards(rng, [24] * 4, 8192, [20, 16, 20, 20], dtype)
+        return sets, int(sets[3][0][17]) + 4099
+    if base == "odd-width":
+        return spmd_shards(rng, [150] * 4, 4097, [40, 10, 0, 40], dtype)
+    if base == "two-chunk-shards":
+        sets, n_out = spmd_shards(rng, [3000] * 3, 64, [2500, 3000, 2000],
+                                  dtype)
+        sets[1][0][2100] = sets[1][0][2047] - 1  # below the chunk before
+        return sets, n_out
+    if base == "narrow-pile-ups":
+        return spmd_shards(rng, [1600] * 4, 8, [100, 1600, 30, 100], dtype)
+    if base == "uneven-shards":
+        return spmd_shards(rng, [5, 0, 40, 17], 300, [5, 0, 31, 17], dtype)
+    if base == "overlap":
+        sets = []
+        for L in (60, 45, 70):
+            starts = np.sort(rng.integers(0, 30000, size=L)).astype(np.int32)
+            sets.append((starts, _values(rng, (L, 2000), dtype)))
+        return sets, 32000 - 3
+    if base == "no-lanes":
+        return [(np.zeros(0, np.int32), np.zeros((0, 8192), dtype))] * 4, 4099
+    if base == "n-out-0":
+        return spmd_shards(rng, [6] * 4, 8192, [4] * 4, dtype)[0], 0
     raise KeyError(cid)
 
 
@@ -1122,19 +1221,86 @@ def _logical_mesh(dev, n=4, model=1):
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
 def test_window_add_spmd_on_a_logical_mesh_matches_plain(cuda_device, dtype):
-    """K5 over 4 data shards of one card: K3 once per shard (the last shard
-    holds padding lanes only), one psum, equal to the plain twin."""
+    """K5 over 4 data shards of one card (the last shard holds padding
+    lanes only): one launch of its kernel over the 4 shards, no K3 launch,
+    one psum that adds nothing and crosses no card; equal to the plain
+    twins."""
+    from audio_decoder_tpu_torch.parallel import mesh as M
+
     starts, upd, n_out = window_case(np.random.default_rng(31), 256, 520, 150,
                                      dtype=dtype)
     s, u = _on(cuda_device, starts, upd)
-    before = dict(PW.launches)
-    got = PW.window_add_spmd(s, u, n_out, mesh=_logical_mesh(cuda_device))
+    before, coll = dict(PW.launches), dict(M.collectives)
+    mesh = _logical_mesh(cuda_device)
+    got = PW.window_add_spmd(s, u, n_out, mesh=mesh)
     torch.cuda.synchronize()
-    assert PW.launches["window_add"] - before["window_add"] == 4
-    assert PW.launches["window_add_spmd"] - before["window_add_spmd"] == 1
-    assert PW.launches["window_add2"] == before["window_add2"]
+    assert {k: PW.launches[k] - before[k] for k in before} == {
+        "window_add": 0, "window_add2": 0, "window_add_spmd": 1,
+        "window_add_spmd_kernel": 1}
+    assert (M.collectives["psum"] - coll["psum"],
+            M.collectives["psum_nccl"] - coll["psum_nccl"]) == (1, 0)
     assert got.value.device.type == "cuda"
     assert torch.equal(got.value, PW.window_add_plain(s, u, n_out))
+    assert torch.equal(got.value, PW.window_add_spmd_plain(
+        s.chunk(4), u.chunk(4), n_out))
+
+
+#: K5's edges whose shards differ in length: no views of one buffer
+SPMD_UNEVEN = ("uneven-shards-i32", "overlap-i32")
+
+
+def spmd_layout(sets, layout: str):
+    """The shards as separate allocations, or as views of one buffer."""
+    if layout == "separate":
+        return sets
+    starts = torch.cat([s for s, _ in sets])
+    upd = torch.cat([u for _, u in sets])
+    c = sets[0][0].shape[0]
+    return [(starts[i * c:(i + 1) * c], upd[i * c:(i + 1) * c])
+            for i in range(len(sets))]
+
+
+@pytest.mark.parametrize("cid,layout", [
+    (cid, lay) for cid in SPMD_CASES for lay in ("separate", "views")
+    if lay == "separate" or cid not in SPMD_UNEVEN])
+def test_window_add_spmd_kernel_edges(cuda_device, cid, layout):
+    """K5 on its own edges (``spmd_case``), each shard a data shard of a
+    logical mesh of the card, held to ``window_add_spmd_plain`` with
+    ``torch.equal``: int32 on any input, float32 with one nonzero term per
+    element; one kernel launch and no K3 launch per call; called twice,
+    the same bits."""
+    from audio_decoder_tpu_torch import parallel as P
+
+    shards, n_out = spmd_case(cid)
+    sets = spmd_layout([tuple(_on(cuda_device, st, u)) for st, u in shards],
+                       layout)
+    if layout == "views":
+        assert len({u.untyped_storage().data_ptr() for _, u in sets}) == 1
+    mesh = _logical_mesh(cuda_device, len(sets))
+    S, U = P.Sharded(tuple(st for st, _ in sets)), P.Sharded(tuple(u for _, u in sets))
+    before = dict(PW.launches)
+    got = PW.window_add_spmd(S, U, n_out, mesh=mesh).value
+    again = PW.window_add_spmd(S, U, n_out, mesh=mesh).value
+    ref = PW.window_add_spmd_plain(S.shards, U.shards, n_out)
+    torch.cuda.synchronize()
+    assert PW.launches["window_add_spmd_kernel"] - before["window_add_spmd_kernel"] == 2
+    assert PW.launches["window_add"] == before["window_add"]
+    assert got.dtype == ref.dtype and got.shape == (n_out,)
+    assert torch.equal(got, ref)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_window_add_spmd_kernel_on_unaligned_shards(cuda_device):
+    """A shard whose updates begin one element into their storage (the
+    4-byte path) beside 16-byte aligned ones, in one launch."""
+    shards, n_out = spmd_case("pile-up-middle-f32")
+    sets = [tuple(_on(cuda_device, st, u)) for st, u in shards]
+    sets[1] = (sets[1][0], unaligned_view(sets[1][1]))
+    assert sets[1][1].data_ptr() % 16 != 0
+    got = PW._window_add_spmd_cuda(sets, n_out)
+    ref = PW.window_add_spmd_plain(*zip(*sets), n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def test_sharded_wav_decode_on_a_logical_mesh_equals_one_card(cuda_device):
@@ -1164,8 +1330,8 @@ def test_sharded_wav_decode_on_a_logical_mesh_equals_one_card(cuda_device):
 
 def test_sharded_flac_decode_on_a_logical_mesh_equals_one_card(cuda_device):
     """The music fixture twice and 6 seeded files of distinct content, over
-    4 data shards: K3 3 x 4 times and K4 never, equal to the single-card
-    decode bit for bit."""
+    4 data shards: K5 3 times, one kernel launch each (one card), K3 and K4
+    never; equal to the single-card decode bit for bit."""
     from audio_decoder_tpu_torch.parallel import round_sizing, sharded_flac_fn
 
     from . import flac_writer
@@ -1181,7 +1347,8 @@ def test_sharded_flac_decode_on_a_logical_mesh_equals_one_card(cuda_device):
     pcm, ovf = sharded_flac_fn(_logical_mesh(cuda_device), **statics)(*args)
     torch.cuda.synchronize()
     got = {k: PW.launches[k] - before[k] for k in before}
-    assert got == {"window_add": 12, "window_add2": 0, "window_add_spmd": 3}
+    assert got == {"window_add": 0, "window_add2": 0, "window_add_spmd": 3,
+                   "window_add_spmd_kernel": 3}
     one, one_ovf = FV.flac_decode_batch(*args, **statics)
     assert torch.equal(pcm.gather(), one)
     assert torch.equal(ovf.gather(), one_ovf) and not bool(one_ovf.any())
@@ -1190,7 +1357,7 @@ def test_sharded_flac_decode_on_a_logical_mesh_equals_one_card(cuda_device):
 def test_dryrun_multichip_on_a_logical_mesh(cuda_device):
     """The multi-device dry run on 8 logical shards of one card: every path
     runs (WAV, MP3, Layer II, FLAC, the render) and holds against one
-    card; K5 launches K3 once per data shard."""
+    card; K5 launches its own kernel once per call (one card), never K3."""
     from audio_decoder_tpu_torch.codecs.mpeg import frontend as MF
     from audio_decoder_tpu_torch.parallel import dryrun_multichip
 
@@ -1206,8 +1373,9 @@ def test_dryrun_multichip_on_a_logical_mesh(cuda_device):
     assert out["mesh"] == {"data": 4, "model": 2}
     assert out["paths"] == ["wav", "mp3", "layer2", "flac", "render"]
     n = out["launches"]
-    # the sharded FLAC decode: 3 K5 calls, K3 4 times each; the single
-    # card's: K4 once, K3 once
-    assert (n["window_add_spmd"], n["window_add"], n["window_add2"]) == (3, 13, 1)
+    # the sharded FLAC decode: 3 K5 calls, one kernel launch each; the
+    # single card's: K4 once, K3 once
+    assert (n["window_add_spmd"], n["window_add_spmd_kernel"], n["window_add"],
+            n["window_add2"]) == (3, 3, 1, 1)
     assert n["mp3_entropy_scan"] > 0 and n["mp3_polyphase_synthesis"] > 0
     assert n["collective_psum_nccl"] == 0

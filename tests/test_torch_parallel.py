@@ -56,6 +56,7 @@ from audio_decoder_tpu_torch.parallel.dryrun import scaled_rms
 
 from . import flac_writer, seeded_writers
 from .synth import make_wav
+from .test_torch_cuda import spmd_shards as window_spmd_shards
 from .test_torch_cuda import window_case
 
 CPU = "cpu"
@@ -164,13 +165,13 @@ def test_window_add_spmd_matches_jax(jmesh, pmesh, case, monkeypatch):
     want = np.asarray(JW.window_add_spmd(jnp.asarray(starts), jnp.asarray(upd),
                                          n_out, mesh=jmesh, interpret=True))
     calls = []
-    k3 = PW.window_add
-    monkeypatch.setattr(PW, "window_add",
+    k3 = PW.window_add_plain
+    monkeypatch.setattr(PW, "window_add_plain",
                         lambda s, u, n: calls.append(s.shape[0]) or k3(s, u, n))
     before = dict(PW.launches)
     got = PW.window_add_spmd(torch.from_numpy(starts), torch.from_numpy(upd),
                              n_out, mesh=pmesh)
-    assert calls == [L // 4] * 4  # K3 once per data shard, on its lanes
+    assert calls == [L // 4] * 4  # K3's twin once per data shard, on its lanes
     assert PW.launches == before  # the CPU runs the plain twin
     assert isinstance(got, P.Replicated) and len(got.copies) == 8
     assert got.value.dtype == torch.from_numpy(upd).dtype
@@ -178,6 +179,93 @@ def test_window_add_spmd_matches_jax(jmesh, pmesh, case, monkeypatch):
     single = PW.window_add_plain(torch.from_numpy(starts),
                                  torch.from_numpy(upd), n_out)
     assert torch.equal(got.value, single)
+
+
+#: K5 over shards that are each sorted but not sorted together:
+#: (shard lanes, W, live lanes per shard, the shards' order in the output,
+#: n_out cut below the end or not)
+K5_SHARD_CASES = {
+    # shard 1's starts lie below shard 0's, shard 3's below shard 2's
+    "unordered": ([16] * 4, 96, [12, 16, 5, 14], [1, 0, 3, 2], False),
+    # 8 data shards (data 8 x model 1), in a scrambled output order
+    "eight-shards": ([8] * 8, 40, [8, 3, 0, 6, 8, 1, 7, 4],
+                     [3, 0, 6, 1, 7, 2, 5, 4], False),
+    # a padding-only shard between live ones: its zeros land at start 0
+    "padding-only-between": ([16] * 4, 64, [10, 0, 16, 7], None, False),
+    # n_out cuts the last shard's last windows
+    "n-out-cuts": ([16] * 4, 200, [16, 9, 12, 16], [0, 2, 1, 3], True),
+}
+
+
+@pytest.fixture(scope="module")
+def jmesh_data8():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+    return JM.make_mesh(8, model_parallel=1)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("case", list(K5_SHARD_CASES))
+def test_window_add_spmd_shards_match_jax(jmesh, jmesh_data8, pmesh, case,
+                                          dtype, monkeypatch):
+    """K5 against JAX's ``window_add_spmd`` (K3 in interpret mode per shard,
+    one psum) on shards whose order in the output is not the shards'
+    order, on 8 data shards, with a padding-only shard, and with n_out
+    cutting the last windows: equal, int32 and float32; the CPU runs K3's
+    twin once per shard, summed in shard order (``window_add_spmd_plain``)."""
+    lanes, W, live, order, cut = K5_SHARD_CASES[case]
+    shards, n_out = window_spmd_shards(np.random.default_rng(len(case)),
+                                       lanes, W, live, dtype, order=order)
+    if cut:  # inside the last range's last live windows
+        full = window_add_spmd_plain_np(shards, n_out)
+        n_out = int(shards[order[-1]][0][live[order[-1]] - 1]) + W // 3
+        assert full[n_out:].any()
+    starts = np.concatenate([st for st, _ in shards])
+    upd = np.concatenate([u for _, u in shards])
+    S = len(shards)
+    jm = jmesh_data8 if S == 8 else jmesh
+    want = np.asarray(JW.window_add_spmd(jnp.asarray(starts), jnp.asarray(upd),
+                                         n_out, mesh=jm, interpret=True))
+    mesh = pmesh if S == 4 else P.make_mesh(8, 1, devices=[CPU] * 8)
+    calls = []
+    k3 = PW.window_add_plain
+    monkeypatch.setattr(PW, "window_add_plain",
+                        lambda s, u, n: calls.append(s.shape[0]) or k3(s, u, n))
+    before = dict(PW.launches)
+    got = PW.window_add_spmd(torch.from_numpy(starts), torch.from_numpy(upd),
+                             n_out, mesh=mesh)
+    assert calls == lanes
+    assert PW.launches == before
+    assert got.value.dtype == torch.from_numpy(upd).dtype
+    assert got.value.shape == (n_out,)
+    np.testing.assert_array_equal(got.value.numpy(), want)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(got.value.numpy(),
+                                  window_add_spmd_plain_np(shards, n_out))
+
+
+def window_add_spmd_plain_np(shards, n_out: int) -> np.ndarray:
+    return PW.window_add_spmd_plain([torch.from_numpy(st) for st, _ in shards],
+                                    [torch.from_numpy(u) for _, u in shards],
+                                    n_out).numpy()
+
+
+def test_window_add_spmd_to_a_device_list(pmesh):
+    """``to=`` narrows K5's replicas, as the FLAC mesh route asks for the
+    ``data`` devices only; one psum per call, none through NCCL."""
+    shards, n_out = window_spmd_shards(np.random.default_rng(5), [8] * 4, 32,
+                                       [8, 6, 8, 2])
+    starts = torch.from_numpy(np.concatenate([st for st, _ in shards]))
+    upd = torch.from_numpy(np.concatenate([u for _, u in shards]))
+    data = pmesh.axis_devices("data")
+    before = dict(M.collectives)
+    got = PW.window_add_spmd(P.shard(starts, pmesh), P.shard(upd, pmesh),
+                             n_out, mesh=pmesh, to=data)
+    assert got.devices == tuple(data) and len(got.copies) == 4
+    assert M.collectives["psum"] == before["psum"] + 1
+    assert M.collectives["psum_nccl"] == before["psum_nccl"]
+    np.testing.assert_array_equal(got.value.numpy(),
+                                  window_add_spmd_plain_np(shards, n_out))
 
 
 # ---------------------------------------------------------------- WAV
@@ -322,15 +410,16 @@ def test_sharded_flac_decode_matches_jax_and_single(jmesh, pmesh, flac_group,
         jx = [JPD.sharded_flac_fn(jmesh, window_impl=impl, **jstatics)(*jargs)
               for impl in ("xla", "pallas")]
     args, statics = FD.pack_group([FF.analyze(b) for b in blobs], CPU, sizing)
-    calls = {"window_add": 0, "window_add2": 0}
-    for mod, name in ((PW, "window_add"), (FV, "window_add2")):
+    calls = {"window_add_plain": 0, "window_add2": 0}
+    for mod, name in ((PW, "window_add_plain"), (FV, "window_add2")):
         fn = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name: (
             calls.__setitem__(_n, calls[_n] + 1) or _f(*a)))
     before = dict(M.collectives)
     pcm, ovf = P.sharded_flac_fn(pmesh, **statics)(*args)
-    # three K5 calls (two for the values, one for the PCM), K3 per shard
-    assert calls == {"window_add": 12, "window_add2": 0}
+    # three K5 calls (two for the values, one for the PCM), each K3's
+    # plain twin per shard on the CPU
+    assert calls == {"window_add_plain": 12, "window_add2": 0}
     assert M.collectives["psum"] - before["psum"] == 4  # K5 x 3 + overflow
     assert len(pcm.shards) == 4 and len(ovf.shards) == 4
     got, got_ovf = pcm.gather().numpy(), ovf.gather().numpy()
@@ -488,3 +577,13 @@ def test_dryrun_multichip_on_the_cpu_mesh():
 def test_dryrun_multichip_refuses_unknown_inputs():
     with pytest.raises(ValueError, match="unknown inputs"):
         P.dryrun_multichip(8, devices=[CPU] * 8, inputs={"ogg": b""})
+
+
+def test_window_add_spmd_refuses_a_device_that_is_neither_cpu_nor_cuda():
+    """K5 runs the plain twin on the CPU and its kernel on a card; any
+    other device raises rather than falling back."""
+    mesh = P.make_mesh(4, 1, devices=["meta"] * 4)
+    starts = torch.zeros(8, dtype=torch.int32, device="meta")
+    upd = torch.zeros((8, 4), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        PW.window_add_spmd(starts, upd, 16, mesh=mesh)

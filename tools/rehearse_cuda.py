@@ -23,7 +23,9 @@ int32 exactly, float32 within 2e-3 of the float64 sum) and called twice
 with identical results.  A file named ``window_add.cu`` (K3) is run the
 same way on K3's cases (``WINDOW1_CASES``, and the pile-up on updates that
 begin one element into their storage), held exactly against
-``window_add_plain``.  Another source is only built.
+``window_add_plain``, then on K5's (``SPMD_CASES``; the shards as separate
+allocations and, where they have one length, as views of one buffer), held
+exactly against ``window_add_spmd_plain``.  Another source is only built.
 """
 
 from __future__ import annotations
@@ -158,6 +160,43 @@ def rehearse_k3(so: str, only: str | None) -> None:
                              f"{ref[bad[:8]].tolist()}")
 
 
+def rehearse_k5(so: str, only: str | None) -> None:
+    from tests.test_torch_cuda import SPMD_CASES, spmd_case
+
+    lib = C.CDLL(so)
+    PW._declare(lib)
+    for cid in SPMD_CASES:
+        if only and cid != only:
+            continue
+        shards, n_out = spmd_case(cid)
+        sets = [(torch.as_tensor(s), torch.as_tensor(u)) for s, u in shards]
+        layouts = {"separate": sets}
+        if len({s.shape[0] for s, _ in sets}) == 1:
+            starts = torch.cat([s for s, _ in sets])
+            upd = torch.cat([u for _, u in sets])
+            c = sets[0][0].shape[0]
+            layouts["views"] = [(starts[i * c:(i + 1) * c], upd[i * c:(i + 1) * c])
+                                for i in range(len(sets))]
+        for name, ss in layouts.items():
+            t0 = time.perf_counter()
+            got = PW._window_add_spmd_cuda(ss, n_out, lib=lib, stream=0)
+            again = PW._window_add_spmd_cuda(ss, n_out, lib=lib, stream=0)
+            ref = PW.window_add_spmd_plain(*zip(*ss), n_out)
+            ok = torch.equal(got, ref) and torch.equal(
+                got.view(torch.int32), again.view(torch.int32))
+            plan = PW.plan_sizes_spmd(tuple(s.shape[0] for s, _ in ss),
+                                      ss[0][1].shape[1], n_out)
+            print(f"K5 {cid} ({name}): {'ok' if ok else 'DIFFERS'} (tiles "
+                  f"{plan.nt}, heavy bound {plan.heavy}; "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+            if not ok:
+                bad = torch.nonzero(got != ref).flatten()
+                raise SystemExit(f"K5 {cid}: {bad.numel()} elements differ, "
+                                 f"first {bad[:8].tolist()}: "
+                                 f"{got[bad[:8]].tolist()} vs "
+                                 f"{ref[bad[:8]].tolist()}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("source", nargs="?", default=K4)
@@ -169,6 +208,7 @@ def main() -> None:
         rehearse_k4(so, args.only)
     elif os.path.basename(args.source) == os.path.basename(K3):
         rehearse_k3(so, args.only)
+        rehearse_k5(so, args.only)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,10 @@ colon:
   then its main kernel, launched by this tool's own copy of that sequence,
   ``first_design_call``);
 * K3 ``ws`` (the default): ``window_add.cu``'s three launches over one
-  workspace; ``plan``: the first design as above, one lane set; ``ws2``: a
+  workspace; ``k3only``: the same launches from a ``window_add.cu`` that
+  holds K3 alone (the register-tiled design before K5 shared its
+  kernels, ``git show 9ad55ba:audio_decoder_tpu_torch/csrc/window_add.cu``);
+  ``plan``: the first design as above, one lane set; ``ws2``: a
   ``window_add2.cu`` source called with set b empty.
 
 Every version is first held against the plain twin (K1 exactly, K2 within
@@ -87,7 +90,7 @@ from audio_decoder_tpu_torch.ops import window_add as PW  # noqa: E402
 from audio_decoder_tpu_torch.utils import build  # noqa: E402
 
 TABLES = {"k1": ("two_level", "flat"), "k2": ("folded", "full"),
-          "k4": ("ws", "plan"), "k3": ("ws", "plan", "ws2")}
+          "k4": ("ws", "plan"), "k3": ("ws", "plan", "ws2", "k3only")}
 
 
 def parse_version(kernel: str, spec: str) -> tuple[str, str, str]:
@@ -108,6 +111,21 @@ def _declare_flat(lib: C.CDLL) -> None:
     fn.argtypes = ([p, i, i] + [p] * 10 + [p] * 6 + [i] * 5
                    + [C.c_longlong] * 3 + [p] * 4)
     fn.restype = C.c_int
+
+
+def _declare_k3_only(lib: C.CDLL) -> None:
+    """The interface of a ``window_add.cu`` that holds K3 alone (before K5
+    shared its kernels): K3's launch, tile and unit."""
+    p, i, ll = C.c_void_p, C.c_int, C.c_longlong
+    lib.window_add_tile.restype = i
+    lib.window_add_tile.argtypes = []
+    lib.window_add_unit_work.restype = ll
+    lib.window_add_unit_work.argtypes = []
+    lib.window_add_launch.restype = i
+    lib.window_add_launch.argtypes = ([p, i, p, i, ll, i, p]
+                                      + [p] * len(PW.WS_PARTS1) + [i, i, p])
+    lib.window_add_blocks_per_sm.restype = i
+    lib.window_add_blocks_per_sm.argtypes = []
 
 
 def _declare_first(lib: C.CDLL) -> None:
@@ -131,7 +149,8 @@ def load(kernel: str, name: str, path: str, tables: str) -> C.CDLL:
     lib = C.CDLL(so)
     declare = {"two_level": HK._declare, "flat": _declare_flat,
                "ws": PW._declare if kernel == "k3" else PW._declare2,
-               "ws2": PW._declare2, "plan": _declare_first}
+               "ws2": PW._declare2, "plan": _declare_first,
+               "k3only": _declare_k3_only}
     declare.get(tables, SK._declare)(lib)
     return lib
 
@@ -391,6 +410,7 @@ def run_k3(specs: list[str], rounds: int, reps: int, card: str) -> dict:
                 raise SystemExit(f"k3 {name} gives other bits a second time "
                                  f"on {k}")
         occ = {"ws": "window_add_blocks_per_sm",
+               "k3only": "window_add_blocks_per_sm",
                "ws2": "window_add2_blocks_per_sm"}.get(iface)
         occ = getattr(lib, occ)() if occ else None
         print(f"k3 {name} ({iface}): exact and repeatable on {list(parts)}; "
