@@ -182,8 +182,8 @@ def cmd_export(args) -> int:
 def cmd_transcode(args) -> int:
     """Decode ANY supported input (wav/aiff/aifc/mp3/au/caf/flac/...)
     on the torch device and re-encode to the container named by the
-    output extension (.wav/.aif/.aiff/.au/.snd/.caf) — the decode surface
-    and the export surface joined end-to-end."""
+    output extension (.wav/.aif/.aiff/.au/.snd/.caf/.flac) — the decode
+    surface and the export surface joined end-to-end."""
     from .codecs.registry import decode_paths
     from .dsp.resample import resample_batch
     from .io.encode import FLOAT_CONTAINERS, write_audio
@@ -339,14 +339,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     pe.add_argument("--assets", required=True)
     pe.add_argument("--out", required=True, help="output directory")
     pe.add_argument("--container", default="wav",
-                    help="wav/aif/aiff/au/snd/caf (flac: not ported yet)")
+                    help="wav/aif/aiff/au/snd/caf/flac")
     pe.add_argument("--bits", type=int, default=16)
     pe.add_argument("--dither", type=int, default=None,
                     help="TPDF dither seed (float→int mastering)")
     pe.set_defaults(fn=cmd_export)
 
     pt = sub.add_parser(
-        "transcode", help="decode one file, re-encode to wav/aiff/au/caf")
+        "transcode", help="decode one file, re-encode to wav/aiff/au/caf/flac")
     pt.add_argument("input")
     pt.add_argument("out", help="output path; extension picks the container")
     pt.add_argument("--bits", type=int, default=16,

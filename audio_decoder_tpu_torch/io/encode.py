@@ -5,7 +5,8 @@ decode_helpers.rs:17-38, and nothing in the tree writes audio back
 out); this module is a beyond-reference addition so a user can round-trip:
 decode/render on the card, then write WAV / AIFF / AU / CAF containers
 that any tool — including our own decoders — reads back.  The bytes are
-those of the JAX package's writers, dither included.
+those of the JAX package's writers, dither included.  ``.flac`` goes
+through ``codecs.flac.encode.encode_flac``.
 
 Split of labor mirrors the decode direction in reverse:
 
@@ -250,9 +251,10 @@ def encode_au(
 
 
 def _encode_flac(pcm, sample_rate, **kw):
-    raise NotImplementedError(
-        "the FLAC encoder is not ported yet (ROADMAP queue 1: the FLAC "
-        "encoder, codecs/flac/encode.py, is the next slice)")
+    # late import: the FLAC family is optional at io-module import time
+    from ..codecs.flac.encode import encode_flac
+
+    return encode_flac(pcm, sample_rate, **kw)
 
 
 _WRITERS = {

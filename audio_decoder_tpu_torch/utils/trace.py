@@ -4,7 +4,8 @@
 ``TRACE.add(name, items)`` counts a stage-defined unit (the registry adds
 decoded audio-seconds under ``decode/<family>``).  CUDA work is
 asynchronous: a stage's time covers the device work only where the region
-itself waits for it.
+itself waits for it.  ``profile_to(log_dir)`` records a torch.profiler
+trace of a region, device time included where a card is present.
 """
 
 from __future__ import annotations
@@ -63,3 +64,24 @@ class Tracer:
 
 #: process-wide tracer the decode layer reports into
 TRACE = Tracer()
+
+
+#: process-wide tracer for a caller's own stages, apart from the decode
+#: layer's ``TRACE`` (the JAX package's ``TRACER``)
+TRACER = Tracer()
+
+
+@contextlib.contextmanager
+def profile_to(log_dir: str):
+    """Capture a torch.profiler trace around a region into ``log_dir`` (a
+    Chrome trace, ``*.pt.trace.json``): host activity, and the card's
+    kernels where CUDA is available."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -122,7 +122,28 @@ Phases:
      its bound, ``index_add_`` and K3 on the whole set, with the memory
      each design allocates per call.  Where more than one card is visible
      it repeats the decodes and the render over the cards and prints how
-     often the cross-card NCCL reduce ran.
+     often the cross-card NCCL reduce ran;
+ 14. FLAC export on the card (``codecs/flac/encode``): ``cli export
+     --platform cuda --container flac`` of the WAV + MP3 folder (its decode's
+     launches counted alone and equal to the main path's) must print "33
+     written, 2 skipped"; the written folder, decoded with
+     ``decode_dir(device="cuda")`` (counted alone: K4 and K3 exactly once per
+     FLAC group), gives every file its source's quantization
+     ``round(clip(pcm · 2^15))`` bit for bit (the WAV sources' integers) and
+     passes its STREAMINFO MD5; on each file's PCM the encoder's pass A on
+     the card against the CPU (ints, cands, is_const exact; fixed_order exact
+     but on frames whose costs tie within 1e-6; fixed_cost within 1e-6
+     relative, acorr within 1e-6 of lag 0) and pass B on both with the CPU's
+     plan (sub, resid exact, psums within 1e-6 relative), with the share of
+     streams equal to the CPU's bytes printed; ``cli transcode --platform
+     cuda`` of the 16-bit music and the 24-bit mono fixture to .flac, each
+     lossless with its source's MD5 (launches counted alone); the 16-file
+     FLAC folder exported at levels 5 and 8 (each decodes exactly; sizes
+     and encode audio-s/s printed); pass A with dither 7 on the card equal
+     to the CPU's; one 10 s file's pass A and pass B device ms, planner and
+     packer host ms and peak device memory at levels 5 and 8.  Every K1-K4
+     call of the export, the decode back and the transcodes is held against
+     its twin on its inputs and timed.
 
 With ``--profile`` it then profiles one decode of the 16 FLAC files with
 torch.profiler and prints each FLAC stage's host and device time (the
@@ -133,17 +154,20 @@ its kernel launches.
 
 Every phase is fatal.  The kernels line gives each kernel's launches on
 the main path, the streams (``streams``), the Layer I/II path
-(``layer12``), the engine's decode (``engine``) and the sharded runs
-(``multichip``); K5 (``window_add_spmd``) has its own entry.  The last line of
-standard output is
+(``layer12``), the engine's decode (``engine``), the sharded runs
+(``multichip``) and the FLAC export (``flac_encode``: the export's decode,
+the decode of the written files, the transcodes); K5 (``window_add_spmd``)
+has its own entry.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
 its power limit, and the line before that lists the kernels.
 
 With ``--phase multichip`` it builds, writes the main path's WAV files
 and a seeded Layer II stream, and runs phase 13 alone (about a minute):
 the quick check of the cross-card path on a machine with several cards.
+With ``--phase export`` it builds, runs the main path and phase 14 alone.
 
-Usage:  python3 chip_smoke.py [--seed N] [--profile] [--phase all|multichip]
+Usage:  python3 chip_smoke.py [--seed N] [--profile]
+                              [--phase all|multichip|export]
 """
 
 from __future__ import annotations
@@ -796,9 +820,13 @@ def _md5_ok(path: str, got) -> bool:
     from audio_decoder_tpu_torch.codecs.flac import frontend
 
     an = frontend.analyze(open(path, "rb").read())
-    ints = np.round(got.pcm.astype(np.float64)
-                    * 2.0 ** (got.bits_per_sample - 1)).astype(np.int64)
-    return frontend.verify_md5(an, ints) is True
+    return frontend.verify_md5(an, _ints(got)) is True
+
+
+def _ints(f) -> np.ndarray:
+    """A decoded file's integer samples (its PCM times 2^(bits-1))."""
+    return np.round(f.pcm.astype(np.float64)
+                    * 2.0 ** (f.bits_per_sample - 1)).astype(np.int64)
 
 
 def phase_flac_chunked(dev) -> dict:
@@ -2165,17 +2193,35 @@ def _mesh_refs(inp: dict, dev) -> dict:
                 layer2=(l2_args, l2_kw), flac=(flac_args, flac_kw))
 
 
+def _counted_kernels(fn, patches=()):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after, each K1-K5 call's inputs kept; ``patches`` are (module,
+    attribute, wrapper) set for the run only.  Returns (result, {kernel:
+    launches}, {kernel: [(args, kwargs)]}, wall seconds)."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    for m, a, w in patches:
+        setattr(m, a, w(getattr(m, a)))
+    try:
+        _zero_kernel_counts()
+        with _captured_kernel_inputs() as seen:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _kernel_counts()
+    finally:
+        for m, a, fn0 in saved:
+            setattr(m, a, fn0)
+    return out, counts, seen, wall
+
+
 def _counted_run(fn):
     """``fn()`` with every launch count set to 0 just before it and read
     just after, each K1-K4 call's inputs kept (``_captured_kernel_inputs``);
     then ``fn()`` once more, timed alone: (the first run's result,
     {kernel: launches}, {kernel: [(args, kwargs)]}, the second's wall
     seconds)."""
-    _zero_kernel_counts()
-    with _captured_kernel_inputs() as seen:
-        out = fn()
-        torch.cuda.synchronize()
-    counts = _kernel_counts()
+    out, counts, seen, _ = _counted_kernels(fn)
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
@@ -2459,6 +2505,293 @@ def phase_multichip(folder: str, wavs: dict, layer2: bytes, dev, card: str,
     return launches, shapes, k5
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: FLAC export on the card (codecs/flac/encode through io/encode's
+# writers and the CLI's export and transcode)
+# ---------------------------------------------------------------------------
+
+ENCODE_KERNELS = ("mp3_entropy_scan", "mp3_polyphase_synthesis", "window_add2",
+                  "window_add")
+
+
+def _cli_run(argv: list) -> tuple[int, str]:
+    """The port's CLI in this process: (return code, standard output)."""
+    import io
+
+    from audio_decoder_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _quantized16(pcm: np.ndarray) -> np.ndarray:
+    """The encoder's 16-bit quantization, round(clip(pcm · 2^15))."""
+    q = np.round(pcm.astype(np.float32) * np.float32(32768.0))
+    return np.clip(q, -32768, 32767).astype(np.int64)
+
+
+def _decode_back(folder: str, dev, label: str):
+    """``decode_dir(folder, device="cuda")`` of written .flac files, counted
+    alone, with the FLAC decoder's device groups counted beside it: K4 and
+    K3 must launch exactly once per group and nothing else at all."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.codecs.flac import decoder as FD
+
+    groups = []
+
+    def counting(fn):
+        def call(*a, **kw):
+            groups.append(len(a[0]))
+            return fn(*a, **kw)
+        return call
+
+    (batch, names), counts, seen, wall = _counted_kernels(
+        lambda: adt.decode_dir(folder, device=dev),
+        [(FD, "_decode_batch", counting)])
+    want = {k: len(groups) if k in ("window_add", "window_add2") else 0
+            for k in counts}
+    if len(groups) < 1 or counts != want:
+        fail(f"{label}: the decode back launched {counts}, want {want} "
+             f"({len(groups)} FLAC groups of {groups} files)")
+    return batch, names, counts, seen, wall, groups
+
+
+def _check_passes(label: str, x: np.ndarray, rate: int, dev, level: int = 5,
+                  dither=None) -> tuple:
+    """Pass A on the card against the CPU, then pass B on both with the CPU's
+    plan, at the encoder's bar (tests/test_torch_cuda.py's checks).
+    Returns (the CPU's stream bytes, the check's numbers)."""
+    from audio_decoder_tpu_torch.codecs.flac import encode as PX
+    from tests.test_torch_cuda import check_pass_a, check_pass_b, flac_passes
+
+    cpu_a, plan, cpu_b, nvalid = flac_passes(x, "cpu", level=level,
+                                             dither=dither)
+    gpu_a, _plan, gpu_b, _ = flac_passes(x, dev, level=level, dither=dither,
+                                         plan_from=cpu_a)
+    try:
+        got = check_pass_a(cpu_a, gpu_a, nvalid, 16, x.shape[1])
+        got["psums_rel"] = check_pass_b(cpu_b, gpu_b)
+    except AssertionError as e:
+        fail(f"{label}: the card's encoder passes miss the bar against the "
+             f"CPU: {e}")
+    blob = PX._emit(plan, {**cpu_b, "ints": cpu_a["ints"]}, nvalid,
+                    S=x.shape[0], C=x.shape[1], bits=16, blocksize=4096,
+                    npart=PX._npart(4096), sample_rate=rate)
+    return blob, got
+
+
+def _encode_stages(x: np.ndarray, dev, level: int) -> dict:
+    """encode_flac's flow on one file, stage by stage: pass A and pass B in
+    device ms (CUDA events), the planner and the packer in host ms; the
+    stream must equal ``encode_flac``'s.  Also its peak device memory."""
+    from audio_decoder_tpu_torch.codecs.flac import encode as PX
+    from tests.test_torch_cuda import flac_blocked
+
+    S, C = x.shape
+    maxo, names = PX.LEVELS[level]
+    xb, nvalid = flac_blocked(x, 4096)
+    xd = torch.as_tensor(xb, device=dev)
+    nv = torch.as_tensor(nvalid, device=dev)
+    w = torch.as_tensor(PX.window_bank(names, 4096), device=dev)
+    kw = dict(bits=16, channels=C, nmax=4096, maxo=maxo)
+    pass_a_ms = cuda_ms(lambda: PX.flac_cost_batch(xd, nv, w, **kw), 5)
+    out = PX.flac_cost_batch(xd, nv, w, **kw)
+    t0 = time.perf_counter()
+    plan = PX._plan_predictors(
+        {k: out[k].cpu().numpy() for k in ("fixed_cost", "fixed_order",
+                                           "is_const", "acorr")},
+        nvalid.astype(np.int64), bits=16, channels=C, maxo=maxo, nmax=4096)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    _mode, sel, _kind, order, shift, coeffs, _prec = plan
+    b_args = (out["cands"], nv, *(torch.as_tensor(v, device=dev)
+                                  for v in (sel, order, coeffs, shift)))
+    b_kw = dict(channels=C, nmax=4096, npart=PX._npart(4096), maxo=max(maxo, 4))
+    pass_b_ms = cuda_ms(lambda: PX.flac_residual_batch(*b_args, **b_kw), 5)
+    res = PX.flac_residual_batch(*b_args, **b_kw)
+    fetched = {k: v.cpu().numpy() for k, v in res.items()}
+    fetched["ints"] = out["ints"].cpu().numpy()
+    t0 = time.perf_counter()
+    blob = PX._emit(plan, fetched, nvalid, S=S, C=C, bits=16, blocksize=4096,
+                    npart=PX._npart(4096), sample_rate=RATE)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    del out, res, b_args
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    whole = PX.encode_flac(x, RATE, level=level, device=dev)
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    if whole != blob:
+        fail(f"level {level}: the staged encode differs from encode_flac's")
+    return dict(pass_a_ms=pass_a_ms, plan_ms=plan_ms, pass_b_ms=pass_b_ms,
+                pack_ms=pack_ms, peak_mb=peak_mb, bytes=len(blob))
+
+
+def phase_flac_export(folder: str, wavs: dict, flac_folder: str, work: str,
+                      dev, card: str, main_launches: dict) -> dict:
+    """Phase 14: FLAC export on the card.  Returns {kernel: {"launches":
+    {run: n}, "shapes": [...]}} for K1-K4."""
+    import audio_decoder_tpu_torch as adt
+    from audio_decoder_tpu_torch.codecs.flac import frontend
+    from audio_decoder_tpu_torch.io import encode as IE
+
+    t_phase = time.perf_counter()
+    runs, shapes = {}, {}
+
+    def hold(seen, where):
+        for k, v in captured_kernels(seen, where).items():
+            shapes.setdefault(k, []).extend(v)
+
+    # (a) cli export of the main path's folder to .flac, counted alone; the
+    # batch it encodes is kept to hold each stream against its source
+    out_dir = os.path.join(work, "export")
+    kept = {}
+
+    def keeping(fn):
+        def call(out, batch, names=None, **kw):
+            kept.update(batch=batch, names=names)
+            return fn(out, batch, names, **kw)
+        return call
+
+    (rc, text), counts, seen, wall = _counted_kernels(
+        lambda: _cli_run(["--platform", "cuda", "export", "--assets", folder,
+                          "--out", out_dir, "--container", "flac"]),
+        [(IE, "export_batch", keeping)])
+    runs["export"] = counts
+    want = {k: main_launches[k] if k in ENCODE_KERNELS[:2] else 0
+            for k in counts}
+    if rc != 0 or f"{N_WAV + N_MP3 + 1} written, 2 skipped" not in text:
+        fail(f"cli export --container flac returned {rc}: "
+             f"{text.strip().splitlines()[-1:]}")
+    if counts != want:
+        fail(f"the export's decode launched {counts}, want the main path's "
+             f"{want}")
+    hold(seen, "FLAC export's decode")
+    src, src_names = kept["batch"], kept["names"]
+    written = sorted(os.listdir(out_dir))
+    audio_s = float(sum(src.file(i).pcm.shape[0] / src.file(i).sample_rate
+                        for n, i in src_names.items() if not src.file(i).err))
+    log(f"FLAC export: cli export --platform cuda --container flac wrote "
+        f"{len(written)} files ({audio_s:.2f} audio-s) in {wall:.3f} s "
+        f"(decode included); launches {counts}  [{card}]")
+
+    back, names, counts, seen, back_wall, groups = _decode_back(
+        out_dir, dev, "FLAC export")
+    runs["decode_back"] = counts
+    hold(seen, "FLAC export's decode back")
+    for name, i in src_names.items():
+        f = src.file(i)
+        if f.err:
+            continue
+        path = os.path.join(out_dir, f"{name}.flac")
+        g = back.file(names[name])
+        q = _quantized16(f.pcm)
+        if g.err or g.pcm.shape != f.pcm.shape or not np.array_equal(_ints(g), q):
+            fail(f"{name}.flac does not decode to its source's quantization")
+        if name in wavs and not np.array_equal(q, wavs[name]):
+            fail(f"{name}.flac: the WAV source's quantization is not its "
+                 f"integers")
+        if not _md5_ok(path, g):
+            fail(f"{name}.flac fails its STREAMINFO MD5")
+    log(f"FLAC export: all {len(written)} files decode on the card to their "
+        f"sources' quantization bit for bit with their MD5 ({back_wall:.3f} s; "
+        f"K4 and K3 once per FLAC group, {len(groups)} groups of {groups} "
+        f"files)")
+
+    # (b) the card against the CPU on each exported file's PCM
+    equal, diff, worst = 0, 0, dict(flipped=0, cost_rel=0.0, acorr_rel=0.0,
+                                    psums_rel=0.0)
+    t0 = time.perf_counter()
+    for name, i in sorted(src_names.items()):
+        f = src.file(i)
+        if f.err:
+            continue
+        blob, got = _check_passes(f"{name}.flac", f.pcm, int(f.sample_rate),
+                                  dev)
+        mine = open(os.path.join(out_dir, f"{name}.flac"), "rb").read()
+        equal += blob == mine
+        diff += len(mine) - len(blob)
+        worst = {k: max(worst[k], got[k]) for k in worst}
+    log(f"FLAC export: card against CPU on the {len(written)} files' PCM "
+        f"meets the bar (ints, cands, is_const, sub, resid exact; max rel "
+        f"fixed_cost {worst['cost_rel']:.3e}, acorr {worst['acorr_rel']:.3e} "
+        f"of lag 0, psums {worst['psums_rel']:.3e}; most flipped FIXED orders "
+        f"in a file {worst['flipped']}); bytes equal to the CPU's stream in "
+        f"{equal} of {len(written)} files, total size card - CPU {diff} bytes "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    # (c) lossless transcodes of the committed FLAC fixtures
+    tc = {}
+    for path, extra in ((MUSIC_FLAC, []), (MONO24_FLAC, ["--bits", "24"])):
+        out = os.path.join(work, "t_" + os.path.basename(path))
+        (rc, text), counts, seen, wall = _counted_kernels(
+            lambda: _cli_run(["--platform", "cuda", "transcode", path, out]
+                             + extra))
+        if rc != 0:
+            fail(f"cli transcode {os.path.basename(path)} returned {rc}")
+        for k, v in counts.items():
+            tc[k] = tc.get(k, 0) + v
+        hold(seen, f"transcode of {os.path.basename(path)}")
+        pair = adt.decode_paths([path, out], device=dev)
+        a, b = pair.file(0), pair.file(1)
+        if b.err or b.bits_per_sample != a.bits_per_sample \
+                or not np.array_equal(_ints(a), _ints(b)):
+            fail(f"transcode of {os.path.basename(path)} is not lossless")
+        an = frontend.analyze(open(out, "rb").read())
+        if an.md5 != frontend.analyze(open(path, "rb").read()).md5 \
+                or not _md5_ok(out, b):
+            fail(f"transcode of {os.path.basename(path)}: STREAMINFO MD5 "
+                 f"differs from the source's")
+        log(f"FLAC transcode {os.path.basename(path)} → .flac "
+            f"({a.bits_per_sample}-bit): lossless, the source's MD5; "
+            f"{os.path.getsize(path)} → {os.path.getsize(out)} bytes, "
+            f"{wall:.3f} s; launches {counts}")
+    runs["transcode"] = tc
+    if any(sum(r[k] for r in runs.values()) <= 0 for k in ENCODE_KERNELS):
+        fail(f"a kernel of the export path was never launched: {runs}")
+
+    # (d) level 8 and level 5 over the 16-file FLAC folder, and the dither
+    fl, fl_names = adt.decode_dir(flac_folder, device=dev)
+    g16 = {n: i for n, i in fl_names.items() if n.startswith("g")}
+    sizes, rates = {}, {}
+    for level in (5, 8):
+        d = os.path.join(work, f"level{level}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = adt.export_batch(d, fl, g16, container="flac", level=level,
+                               device=dev)
+        wall = time.perf_counter() - t0
+        if sorted(out) != sorted(g16):
+            fail(f"level {level}: export_batch wrote {sorted(out)}")
+        rates[level] = N_FLAC * SECONDS / wall
+        back, names, *_ = _decode_back(d, dev, f"level {level}")
+        for n, i in g16.items():
+            if not np.array_equal(_ints(back.file(names[n])), _ints(fl.file(i))):
+                fail(f"level {level}: {n}.flac does not decode exactly")
+        sizes[level] = sum(os.path.getsize(p) for p in out.values())
+    log(f"FLAC levels over the 16-file folder: every file decodes exactly; "
+        f"bytes level 5 {sizes[5]}, level 8 {sizes[8]} "
+        f"({sizes[8] / sizes[5]:.5f}); encode rate (export_batch, card) "
+        f"level 5 {rates[5]:.3f}, level 8 {rates[8]:.3f} audio-s/s  [{card}]")
+    music = fl.file(g16["g00"]).pcm
+    _check_passes("dither 7", music, RATE, dev, dither=7)
+    log("FLAC dither=7: pass A's ints equal on the card and the CPU "
+        "(threefry bit for bit), every array at the bar")
+
+    # (e) one 10 s file stage by stage
+    for level in (5, 8):
+        st = _encode_stages(music, dev, level)
+        log(f"FLAC encode of one 10 s stereo file at level {level}: pass A "
+            f"{st['pass_a_ms']:.4f} device ms, planner {st['plan_ms']:.3f} "
+            f"host ms, pass B {st['pass_b_ms']:.4f} device ms, packer "
+            f"{st['pack_ms']:.3f} host ms; peak device memory "
+            f"{st['peak_mb']:.1f} MB; {st['bytes']} bytes  [{card}]")
+    log(f"FLAC export phase {time.perf_counter() - t_phase:.3f} s")
+    return {k: dict(launches={r: n[k] for r, n in runs.items()},
+                    shapes=shapes.get(k, [])) for k in ENCODE_KERNELS}
+
+
 def multichip_only(seed: int) -> None:
     """``--phase multichip``: the build, the main path's 16 WAV files and a
     seeded 10 s Layer II stream, then ``phase_multichip`` alone (about a
@@ -2480,18 +2813,43 @@ def multichip_only(seed: int) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def export_only(seed: int) -> None:
+    """``--phase export``: the build, the main path and the FLAC folders,
+    then ``phase_flac_export`` alone."""
+    card = phase_environment()
+    phase_build()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="adt_smoke_") as folder, \
+            tempfile.TemporaryDirectory(prefix="adt_smoke_flac_") as flac_folder, \
+            tempfile.TemporaryDirectory(prefix="adt_smoke_export_") as work:
+        wavs = write_folder(folder, seed)
+        launches, _ = phase_main_path(folder, wavs, dev)
+        write_flac_folder(flac_folder, seed)
+        encode = phase_flac_export(folder, wavs, flac_folder, work, dev, card,
+                                   launches)
+    print(json.dumps({"flac_encode": {k: v["launches"] for k, v in encode.items()}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--profile", action="store_true",
                     help="profile one FLAC decode after the other phases")
-    ap.add_argument("--phase", choices=("all", "multichip"), default="all",
-                    help="multichip: the build and the multi-device phase "
-                    "alone")
+    ap.add_argument("--phase", choices=("all", "multichip", "export"),
+                    default="all", help="multichip: the build and the "
+                    "multi-device phase alone; export: the build, the main "
+                    "path and the FLAC export phase")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)  # the numpy writers of tests/
     if args.phase == "multichip":
         multichip_only(args.seed)
+        return
+    if args.phase == "export":
+        export_only(args.seed)
         return
 
     card = phase_environment()
@@ -2530,6 +2888,9 @@ def main() -> None:
         log(f"engine phases {time.perf_counter() - t2:.3f} s")
         mesh_launches, mesh_shapes, k5 = phase_multichip(
             folder, wavs, src["layer2"][0], dev, card, args.seed)
+        with tempfile.TemporaryDirectory(prefix="adt_smoke_export_") as work:
+            encode = phase_flac_export(folder, wavs, flac_folder, work, dev,
+                                       card, launches)
         if args.profile:
             phase_profile(flac_folder, card)
             phase_families_profile(fam_folder, card, dev)
@@ -2558,6 +2919,10 @@ def main() -> None:
             launches={path: n[k["name"]] for path, n in mesh_launches.items()
                       if n[k["name"]]},
             shapes=mesh_shapes.get(k["name"], []))
+        # the FLAC export: the launches of cli export's decode, of the decode
+        # of the written files and of the two transcodes, each run counted
+        # alone, and the kernel on each call's inputs there
+        k["flac_encode"] = encode[k["name"]]
     # K5: its kernel's launches in the sharded FLAC decode (one per call on
     # the one card of the logical mesh), its wrapper calls, the K3 launches
     # it made (none), the kernel on each launch's inputs there, and its

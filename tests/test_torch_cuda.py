@@ -13,7 +13,9 @@ suite's JAX conftest:
 ``window1_case`` (K3's own edges), which also serves
 tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges) and
 ``spmd_case`` (K5's) do; ``spmd_shards`` also builds the CPU tests' K5
-cases (tests/test_torch_parallel.py).
+cases (tests/test_torch_parallel.py).  The FLAC encoder's bar
+(``check_pass_a``, ``check_pass_b``) and ``flac_passes`` serve
+tests/test_torch_flac_encode.py and chip_smoke.py's export phase too.
 """
 
 import dataclasses
@@ -1379,3 +1381,156 @@ def test_dryrun_multichip_on_a_logical_mesh(cuda_device):
             n["window_add2"]) == (3, 3, 1, 1)
     assert n["mp3_entropy_scan"] > 0 and n["mp3_polyphase_synthesis"] > 0
     assert n["collective_psum_nccl"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The FLAC encoder's two device passes on the card
+# ---------------------------------------------------------------------------
+
+#: the encoder's bar for its f32 sums (cost, autocorrelation, psums)
+ENCODE_TOL = 1e-6
+
+
+def flac_music(rng, S, C=2, rate=44100):
+    """Correlated tonal material with a little noise, as f32 on the 16-bit
+    grid (the content LPC analysis is for)."""
+    t = np.arange(S) / rate
+    m = sum(a * np.sin(2 * np.pi * f * t + 0.1 * np.sin(2 * np.pi * 3 * t))
+            for f, a in ((82.4, 0.3), (164.8, 0.22), (329.6, 0.18),
+                         (659.3, 0.08), (1318.5, 0.04)))
+    m = m * (0.6 + 0.4 * np.sin(2 * np.pi * 1.7 * t))
+    m = m + 0.004 * rng.standard_normal(S)
+    x = np.stack([np.roll(m, 7 * c) * (1.0 - 0.1 * c) for c in range(C)], 1)
+    return (np.round(x * 2.0 ** 15 * 0.6) / 2.0 ** 15).astype(np.float32)
+
+
+def flac_blocked(x, blocksize):
+    """encode_flac's frame blocking: [Fb, blocksize, C] f32 and nvalid [Fb]
+    i32 (Fb the power-of-two bucket of the frame count)."""
+    S, C = x.shape
+    F = -(-S // blocksize)
+    Fb = max(1, 1 << (F - 1).bit_length())
+    xb = np.pad(x, ((0, Fb * blocksize - S), (0, 0))).reshape(Fb, blocksize, C)
+    nvalid = np.clip(S - np.arange(Fb) * blocksize, 0, blocksize)
+    return xb, nvalid.astype(np.int32)
+
+
+def fixed_costs64(cands, nvalid, cbps):
+    """Pass A's FIXED cost model per order in f64: [5, F, NC]."""
+    _F, _NC, nmax = cands.shape
+    cbps = np.asarray(cbps, np.float64)
+    idx = np.arange(nmax)
+    valid = idx[None, :] < nvalid[:, None]
+    r = cands.astype(np.int64)
+    ks = np.arange(31, dtype=np.float64)[:, None, None]
+    out = []
+    for o in range(5):
+        m = valid[:, None, :] & (idx >= o)[None, None, :]
+        s = np.where(m, (r << 1) ^ (r >> 63), 0).sum(-1).astype(np.float64)
+        cnt = m.sum(-1).astype(np.float64)
+        out.append((s[None] * 2.0 ** -ks + cnt[None] * (ks + 1)).min(0)
+                   + o * cbps[None, :])
+        r = r - np.pad(r, ((0, 0), (0, 0), (1, 0)))[:, :, :nmax]
+    return np.stack(out)
+
+
+def check_pass_a(want, got, nvalid, bits, channels) -> dict:
+    """Pass A's bar (numpy dicts): ``ints``, ``cands`` and ``is_const``
+    exact; ``fixed_cost`` within 1e-6 relative; ``fixed_order`` exact but on
+    frames whose two orders' costs (in f64) tie within 1e-6; ``acorr``
+    within 1e-6 of its lag 0.  Returns the flipped orders and the largest
+    relative differences."""
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+    for k in ("ints", "cands", "is_const"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    wc = want["fixed_cost"].astype(np.float64)
+    cost_rel = np.abs(got["fixed_cost"] - wc) / np.maximum(np.abs(wc), 1.0)
+    assert cost_rel.max() <= ENCODE_TOL, cost_rel.max()
+    flip = got["fixed_order"] != want["fixed_order"]
+    if flip.any():
+        NC = want["cands"].shape[1]
+        cbps = [bits, bits, bits + 1, bits] if channels == 2 else [bits] * NC
+        c64 = fixed_costs64(want["cands"], nvalid, cbps)
+        f, c = np.nonzero(flip)
+        a = c64[want["fixed_order"][f, c], f, c]
+        b = c64[got["fixed_order"][f, c], f, c]
+        assert np.all(np.abs(a - b) <= ENCODE_TOL * np.abs(a)), (a, b)
+    lag0 = want["acorr"][..., :1].astype(np.float64)
+    diff = np.abs(got["acorr"] - want["acorr"].astype(np.float64))
+    assert np.all(diff <= ENCODE_TOL * lag0)
+    acorr_rel = float((diff / np.where(lag0 > 0, lag0, 1.0)).max())
+    return dict(flipped=int(flip.sum()), cost_rel=float(cost_rel.max()),
+                acorr_rel=acorr_rel)
+
+
+def check_pass_b(want, got) -> float:
+    """Pass B's bar (numpy dicts): ``sub`` and ``resid`` exact, ``psums``
+    within 1e-6 relative.  Returns the largest relative ``psums`` difference."""
+    for k in ("sub", "resid"):
+        assert got[k].dtype == want[k].dtype == np.int32, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["psums"].dtype == np.float32
+    w = want["psums"].astype(np.float64)
+    rel = np.abs(got["psums"] - w) / np.maximum(w, 1.0)
+    assert rel.max() <= ENCODE_TOL, rel.max()
+    return float(rel.max())
+
+
+def flac_passes(x, dev, *, bits=16, blocksize=4096, level=5, dither=None,
+                plan_from=None):
+    """The port's pass A on ``dev``, the planner on pass A's output (or on
+    ``plan_from``'s, another run's pass A), and pass B on ``dev`` with that
+    plan: (pass A as numpy, the plan, pass B as numpy, nvalid)."""
+    from audio_decoder_tpu_torch.codecs.flac import encode as PX
+
+    C = x.shape[1]
+    maxo, names = PX.LEVELS[level]
+    xb, nvalid = flac_blocked(x, blocksize)
+    w = (torch.as_tensor(PX.window_bank(names, blocksize), device=dev)
+         if maxo else None)
+    nv = torch.as_tensor(nvalid, device=dev)
+    out = PX.flac_cost_batch(torch.as_tensor(xb, device=dev), nv, w, bits=bits,
+                             channels=C, nmax=blocksize, maxo=maxo, dither=dither)
+    a = {k: v.cpu().numpy() for k, v in out.items()}
+    plan = PX._plan_predictors(a if plan_from is None else plan_from,
+                               nvalid.astype(np.int64), bits=bits, channels=C,
+                               maxo=maxo, nmax=blocksize)
+    _mode, sel, _kind, order, shift, coeffs, _prec = plan
+    res = PX.flac_residual_batch(
+        out["cands"], nv, *(torch.as_tensor(v, device=dev)
+                            for v in (sel, order, coeffs, shift)),
+        channels=C, nmax=blocksize, npart=PX._npart(blocksize),
+        maxo=max(maxo, 4))
+    return a, plan, {k: v.cpu().numpy() for k, v in res.items()}, nvalid
+
+
+@pytest.mark.parametrize("level,bits,C,dither", [(5, 16, 2, None),
+                                                 (8, 16, 2, None),
+                                                 (0, 24, 1, 7), (8, 24, 6, None)])
+def test_flac_encode_passes_cuda_match_cpu(cuda_device, level, bits, C, dither):
+    """Pass A on the card against the CPU at the encoder's bar, then pass B
+    on both with the CPU's plan."""
+    x = flac_music(np.random.default_rng(level + C), 44100 * 2, C)
+    cpu_a, _plan, cpu_b, nvalid = flac_passes(x, "cpu", bits=bits, level=level,
+                                              dither=dither)
+    gpu_a, _plan, gpu_b, _ = flac_passes(x, cuda_device, bits=bits, level=level,
+                                         dither=dither, plan_from=cpu_a)
+    check_pass_a(cpu_a, gpu_a, nvalid, bits, C)
+    check_pass_b(cpu_b, gpu_b)
+
+
+def test_write_audio_flac_round_trip_on_the_card(cuda_device, tmp_path):
+    """``write_audio`` to .flac on the card decodes on the card to the
+    quantized input bit for bit, with its STREAMINFO MD5."""
+    from audio_decoder_tpu_torch import write_audio
+
+    x = flac_music(np.random.default_rng(5), 30000)
+    path = tmp_path / "x.flac"
+    write_audio(str(path), x, 44100, device=cuda_device)
+    f = decode_paths([str(path)], device=cuda_device).file(0)
+    assert f.err == 0
+    ints = np.round(f.pcm.astype(np.float64) * 2.0 ** 15).astype(np.int64)
+    np.testing.assert_array_equal(ints, np.round(x * 2.0 ** 15).astype(np.int64))
+    assert FF.verify_md5(FF.analyze(path.read_bytes()), ints) is True

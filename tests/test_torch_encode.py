@@ -7,7 +7,9 @@ threefry); every container writer (WAV, RF64, AIFF with integer and
 fractional rates, AU, CAF both byte orders); ``write_audio``,
 ``export_batch`` and the ``export``/``transcode`` subcommands.  The port's
 output is also read back by the port's own decoders.  The ``.flac``
-writer raises until the FLAC encoder is ported.
+writer (``write_audio`` and ``export``) decodes equal to JAX's ``.flac`` of
+the same input with the same STREAMINFO MD5; tests/test_torch_flac_encode.py
+holds the encoder's bytes against JAX's.
 """
 
 import numpy as np
@@ -136,9 +138,26 @@ def test_write_audio_dispatch(tmp_path, rng):
     with pytest.raises(ValueError, match="float AIFF"):
         P.write_audio(str(tmp_path / "y.aif"), pcm, 44100, bits=32, float_=True,
                       device=CPU)
-    with pytest.raises(NotImplementedError, match="FLAC encoder"):
-        P.write_audio(str(tmp_path / "y.flac"), pcm, 44100, device=CPU)
+    P.write_audio(str(tmp_path / "y.flac"), pcm, 44100, device=CPU)
+    JE.write_audio(str(tmp_path / "jy.flac"), pcm, 44100)
+    _same_flac(tmp_path / "y.flac", tmp_path / "jy.flac")
     assert PE.FLOAT_CONTAINERS == JE.FLOAT_CONTAINERS
+
+
+def _same_flac(mine, theirs):
+    """Two .flac files decode (port, CPU) to the same PCM and carry the same
+    STREAMINFO MD5, which matches the decoded integers."""
+    from audio_decoder_tpu_torch.codecs.flac import frontend as PF
+
+    batch = P.decode_paths([str(mine), str(theirs)], device=CPU)
+    a, b = batch.file(0), batch.file(1)
+    assert a.err == b.err == 0 and a.sample_rate == b.sample_rate
+    np.testing.assert_array_equal(a.pcm, b.pcm)
+    an = PF.analyze(mine.read_bytes())
+    assert an.md5 == PF.analyze(theirs.read_bytes()).md5
+    scale = 2.0 ** (a.bits_per_sample - 1)
+    ints = np.round(a.pcm.astype(np.float64) * scale).astype(np.int64)
+    assert PF.verify_md5(an, ints) is True
 
 
 def test_writers_default_to_the_card(rng):
@@ -192,9 +211,14 @@ def test_export_cli_matches_jax(tmp_path, rng, capsys):
         assert (tmp_path / "p" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
     assert not (tmp_path / "p" / "junk.caf").exists()
     assert "2 written, 1 skipped" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="FLAC encoder"):
-        cli.main(["--platform", "cpu", "export", "--assets", str(src), "--out",
-                  str(tmp_path / "f"), "--container", "flac"])
+    assert cli.main(["--platform", "cpu", "export", "--assets", str(src),
+                     "--out", str(tmp_path / "pf"), "--container", "flac"]) == 0
+    assert "2 written, 1 skipped" in capsys.readouterr().out
+    assert jcli.main(["export", "--assets", str(src), "--out",
+                      str(tmp_path / "jf"), "--container", "flac"]) == 0
+    for name in ("a.flac", "b.flac"):
+        _same_flac(tmp_path / "pf" / name, tmp_path / "jf" / name)
+    assert not (tmp_path / "pf" / "junk.flac").exists()
 
 
 def test_transcode_cli_matches_jax(tmp_path, rng):
@@ -209,6 +233,11 @@ def test_transcode_cli_matches_jax(tmp_path, rng):
         assert cli.main(["--platform", "cpu", "transcode", str(src), str(po)] + args) == 0
         assert jcli.main(["transcode", str(src), str(jo)] + args) == 0
         assert po.read_bytes() == jo.read_bytes()
+    for args in ([], ["--bits", "24"]):
+        po, jo = tmp_path / "p.flac", tmp_path / "j.flac"
+        assert cli.main(["--platform", "cpu", "transcode", str(src), str(po)] + args) == 0
+        assert jcli.main(["transcode", str(src), str(jo)] + args) == 0
+        _same_flac(po, jo)
     # resampling: the port's resampler is held to JAX within 2e-6
     # (tests/test_torch_resample.py), so only the length and the decode
     out = tmp_path / "half.wav"
