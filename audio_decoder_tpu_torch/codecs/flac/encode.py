@@ -34,9 +34,9 @@ import torch
 from torch.nn.functional import pad as _pad
 from torch.profiler import record_function
 
-from ...engine.render import _fma
 from ...ops.bytes import _exp2_xla, f32_to_i32
 from ...utils import threefry
+from ...utils.threefry import _fma
 from .frontend import crc8, crc16, pcm_md5
 
 __all__ = ["encode_flac"]

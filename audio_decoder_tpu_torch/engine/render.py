@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils import threefry
+from ..utils.threefry import _fma
 from .state import MAX_STEPS, PROC_ENV, PROC_SEQ, PROC_TREM, EngineArrays
 
 
@@ -196,12 +197,6 @@ def render_mix(st: EngineArrays, *, frames: int, out_channels: int
     return mix, dataclasses.replace(
         st, v_active=active_next, v_pos=pos_next,
         clock=_wrap_i32(st.clock.long() + F))
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once to f32, as XLA's fused multiply-add
-    computes it (the f64 product of two f32 values is exact)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _py_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

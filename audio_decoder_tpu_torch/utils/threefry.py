@@ -17,7 +17,11 @@ The functions follow ``jax/_src/prng.py`` and ``jax/_src/random.py``:
 * ``random_bits(key, shape)``: per-element counters (``iota_2x32_shape``:
   high word 0, low word the flat index), then ``bits1 ^ bits2``;
 * ``split(key, n)``: the fold-like split, key ``i`` = the hash of counter ``i``;
-* ``uniform``: ``bits >> 9 | 0x3F800000`` read as f32, minus 1, scaled;
+* ``uniform``: ``bits >> 9 | 0x3F800000`` read as f32, minus 1, scaled
+  by ``maxval - minval`` and shifted by ``minval`` in one rounding (XLA:CPU
+  fuses the two into one FMA);
+* ``normal``: ``uniform`` over ``[nextafter(-1, 0), 1)``, then ``sqrt(2)``
+  times XLA's f32 ``erf_inv`` polynomial (Giles), not torch's ``erfinv``;
 * ``randint``: two draws from ``split(key)``, combined modulo the span in
   uint32 arithmetic, for int32 results.
 """
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -102,6 +107,12 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=1)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 values rounded once to f32, as XLA:CPU's fused
+    multiply-add computes it (the f64 product of two f32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
@@ -110,7 +121,46 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     floats = fbits.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+#: XLA's f32 ``erf_inv`` (Giles' polynomials), highest power first: for
+#: ``w = -log1p(-x*x)`` below 5 in ``w - 2.5``, else in ``sqrt(w) - 3``
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` of ``x`` in [-1, 1]: each Horner step is one
+    FMA, as XLA:CPU computes it (torch's ``erfinv`` rounds otherwise)."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    # torch's f32 sqrt on the CPU is not always correctly rounded; XLA's is
+    t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=torch.float32,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], dtype=torch.float32,
+                                        device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, t, coef(i))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: within 2e-6 of JAX's
+    samples, not bit for bit (``log1p`` rounds as torch rounds it)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32,
+                        device=key.device) * erf_inv(u)
 
 
 def _urem(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1534,3 +1534,38 @@ def test_write_audio_flac_round_trip_on_the_card(cuda_device, tmp_path):
     ints = np.round(f.pcm.astype(np.float64) * 2.0 ** 15).astype(np.int64)
     np.testing.assert_array_equal(ints, np.round(x * 2.0 ** 15).astype(np.int64))
     assert FF.verify_md5(FF.analyze(path.read_bytes()), ints) is True
+
+
+def test_bench_decodes_launch_their_kernels(cuda_device):
+    """The bench's headline decode launches K1 and K2, its FLAC decode K3
+    and K4, and its gates pass on the card (2 WAV of 0.25 s + 2 MP3, 2
+    FLAC copies)."""
+    from audio_decoder_tpu_torch import bench as B
+
+    rng = np.random.default_rng(7)
+    inp = B.mixed_inputs(rng, n_wav=2, n_mp3=2, seconds=0.25, device=cuda_device)
+    launches = B.check_mixed(inp)
+    assert launches["mp3_entropy_scan"] > 0
+    assert launches["mp3_polyphase_synthesis"] > 0
+    before = B._launches()
+    assert B.run_once(inp) > 0
+    once = B._launched(before)
+    assert once["mp3_entropy_scan"] > 0 and once["mp3_polyphase_synthesis"] > 0
+    mus = B.flac_music(rng, inp.frames)
+    launches = B.check_flac(B.flac_assets(mus, 2, device=cuda_device), mus,
+                            device=cuda_device)
+    assert launches["window_add"] > 0 and launches["window_add2"] > 0
+
+
+def test_threefry_range_and_normal_on_the_card(cuda_device):
+    """``uniform`` over a range equals the CPU's bit for bit on the card;
+    ``normal`` within 2e-6 (the card's ``log1p`` rounds as CUDA's does)."""
+    from audio_decoder_tpu_torch.utils import threefry as TF
+
+    for lo, hi in ((1000.0, 87200.0), (-3.0, 5.5), (0.0, 1.0)):
+        cpu = TF.uniform(TF.prng_key(12, device="cpu"), (100_000,), lo, hi)
+        gpu = TF.uniform(TF.prng_key(12, device=cuda_device), (100_000,), lo, hi)
+        assert torch.equal(gpu.cpu(), cpu)
+    cpu = TF.normal(TF.prng_key(11, device="cpu"), (8, 4410, 2))
+    gpu = TF.normal(TF.prng_key(11, device=cuda_device), (8, 4410, 2))
+    assert float((gpu.cpu() - cpu).abs().max()) <= 2e-6
