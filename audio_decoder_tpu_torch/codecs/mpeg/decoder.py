@@ -7,6 +7,13 @@ side metadata; the entropy decode and DSP then run as one
 granules-per-frame) group on the requested device.  Granule counts and
 main_data widths are padded to buckets.
 
+The host-Huffman route (``decode_group_hosthuff``): mp3fe's
+``analyze_batch`` runs the whole Layer III bitstream decode, Huffman
+included, on the host into dense quantized spectra, and one
+``dsp.mp3_dsp_tail`` call per (channels, joint-stereo) group turns them
+into PCM on the device (``analyze_assets``/``decode_analyses`` do the same
+through the Python front-end).
+
 Layers I/II: the host fixed-width walk (``layer12.analyze_l1``/
 ``analyze_l2``) emits dense codes, classes and scalefactor indices; one
 ``layer12.l12_synthesize`` call per channel count requantizes them and
@@ -33,7 +40,7 @@ from ...utils.trace import TRACE
 from . import frontend
 from . import layer12 as L12
 from . import native
-from .dsp import compact_lane_wire, mp3_decode_fused
+from .dsp import compact_lane_wire, mp3_decode_fused, mp3_dsp_tail
 
 if TYPE_CHECKING:  # pragma: no cover
     from ...io.assets import Asset
@@ -75,6 +82,127 @@ def _rate_idx_arr(sample_rate: np.ndarray) -> np.ndarray:
     for i, sr in enumerate(np.asarray(sample_rate)):
         out[i] = T.RATE_IDX.get(int(sr), 0)
     return out
+
+
+def _resolve(device) -> torch.device:
+    """``device`` as a torch.device; None means the card."""
+    from ..registry import resolve_device
+
+    return resolve_device("cuda" if device is None else device)
+
+
+def _meta(vals, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(vals, np.int32), device=device)
+
+
+def analyze_assets(assets: "list[Asset]"):
+    """Host front-end over a list of assets → (analyses, failures).
+
+    analyses: list of (local_index, Mp3Analysis); failures: (idx, errcode).
+    """
+    analyses = []
+    failures = []
+    for i, a in enumerate(assets):
+        try:
+            analyses.append((i, frontend.analyze(a.data)))
+        except E.DecodeError as e:
+            failures.append((i, e.code))
+        except Exception:
+            failures.append((i, E.ERR_INVALID))
+    return analyses, failures
+
+
+def _tail_batch(is_q, exp_b, st, cfg, sample_rate, channels, n_granules, err,
+                names, *, ch: int, joint: bool, device) -> AudioBatch:
+    """Padded host arrays of one (channels, joint) group → one
+    ``mp3_dsp_tail`` call on ``device`` (one copy per array) → its batch."""
+    B, G = is_q.shape[:2]
+
+    def put(a, shape):
+        return torch.as_tensor(a.reshape(shape), device=device)
+
+    pcm = mp3_dsp_tail(
+        put(is_q, (B, G * ch, 576)),
+        put(exp_b, (B, G * ch * 61)),
+        None if st is None else put(st, (B, G * 576)),
+        put(cfg, (B, G * ch)),
+        _meta(_rate_idx_arr(sample_rate), device),
+        channels=ch,
+        joint_stereo=joint,
+    )
+    return AudioBatch(
+        data=pcm, channels=ch,
+        sample_rate=_meta(sample_rate, device),
+        num_channels=_meta(channels, device),
+        bits_per_sample=_meta(np.full((B,), 16), device),  # MP3 nominal depth
+        valid_frames=_meta(np.asarray(n_granules) * 576, device),
+        err=_meta(err, device),
+        names=tuple(names),
+        formats=("mp3",) * B,
+    )
+
+
+def decode_analyses(
+    idxs: list[int], ans: list["frontend.Mp3Analysis"], *, device=None,
+) -> tuple[list[int], AudioBatch]:
+    """Run one uniform (channels, joint) group through the DSP tail on
+    ``device`` (None: the card)."""
+    dev = _resolve(device)
+    ch = ans[0].channels
+    joint = any(a.joint_stereo for a in ans)
+    B = len(ans)
+    G = _bucket(max(a.n_granules for a in ans))
+    is_q = np.zeros((B, G, ch, 576), np.int16)
+    exp_b = np.zeros((B, G, ch, 61), np.int16)
+    st = None
+    if ch == 2 and joint:
+        st = np.zeros((B, G, 576), np.int8)
+    cfg = np.zeros((B, G, ch), np.int8)
+    for b, a in enumerate(ans):
+        g = a.n_granules
+        is_q[b, :g] = a.is_q
+        exp_b[b, :g] = a.exp_b
+        if st is not None and a.st_mode is not None:
+            st[b, :g] = a.st_mode
+        cfg[b, :g] = a.blockcfg
+    batch = _tail_batch(
+        is_q, exp_b, st, cfg, [a.sample_rate for a in ans],
+        [a.channels for a in ans], [a.n_granules for a in ans], np.zeros(B),
+        [str(i) for i in idxs], ch=ch, joint=joint, device=dev)
+    return idxs, batch
+
+
+def _decode_group_native(
+    assets: "list[Asset]", device,
+) -> list[tuple[list[int], AudioBatch]]:
+    """Native-front-end path: threaded C++ bitstream analysis straight into
+    the padded arrays, one DSP-tail call per (channels, joint) group."""
+    probes = [native.probe(a.data) for a in assets]
+
+    pieces: list[tuple[list[int], AudioBatch]] = []
+    failed = [i for i, p in enumerate(probes) if p["err"] != 0]
+    if failed:
+        pieces.append(
+            (failed, _error_batch([assets[i].name for i in failed],
+                                  [probes[i]["err"] for i in failed], device))
+        )
+
+    groups: dict[tuple, list[int]] = {}
+    for i, p in enumerate(probes):
+        if p["err"] == 0:
+            groups.setdefault((p["channels"], p["joint"]), []).append(i)
+
+    for (ch, joint), idxs in groups.items():
+        g_cap = _bucket(max(probes[i]["n_granules"] for i in idxs))
+        with TRACE.stage("mp3/hosthuff_analyze"):
+            r = native.analyze_batch([assets[i].data for i in idxs], g_cap,
+                                     ch, joint)
+        batch = _tail_batch(
+            r["is_q"], r["exp_b"], r["st"], r["cfg"], r["sample_rate"],
+            r["channels"], r["n_granules"], r["err"],
+            [assets[i].name for i in idxs], ch=ch, joint=joint, device=device)
+        pieces.append((idxs, batch))
+    return pieces
 
 
 def _n_big(big, valid) -> int:
@@ -344,6 +472,17 @@ def decode_group(assets: "list[Asset]", *, device) -> list[tuple[list[int], Audi
             for local, batch in sub_pieces:
                 pieces.append(([idxs[j] for j in local], batch))
         return pieces
+
+
+def decode_group_hosthuff(
+    assets: "list[Asset]", *, device=None,
+) -> list[tuple[list[int], AudioBatch]]:
+    """Host-Huffman decode path on ``device`` (None: the card): mp3fe's
+    threaded C++ analysis, Huffman included, then the DSP tail.  Files are
+    grouped by their probed (channels, joint-stereo); a file the probe
+    rejects becomes an error piece with its code.  Without mp3fe it raises
+    ``BuildError`` (there is no pure-Python fallback)."""
+    return _decode_group_native(assets, _resolve(device))
 
 
 class Mp3Stream:

@@ -8,6 +8,10 @@ entry point raises ``BuildError``.
 
 * ``available()`` — whether the library could be built and loaded;
 * ``probe(blob)`` — cheap geometry walk (sr, channels, granules, joint);
+* ``analyze_batch(blobs, g_cap, channels, joint)`` — threaded batch
+  analysis (the Huffman decode on the host) straight into the padded
+  [B, G, ...] arrays the DSP tail eats;
+* ``frame_walks()`` — the process-wide count of native frame walks;
 * ``lanes_batch(blobs, g_cap, m_cap, channels)`` — raw main_data plus
   per-lane side metadata for the on-device Huffman path;
 * ``Mp3Session`` — one frame walk per blob serving layer routing,
@@ -58,6 +62,15 @@ def _build() -> str:
 def _declare(lib: C.CDLL) -> None:
     lib.mp3fe_probe.restype = None
     lib.mp3fe_probe.argtypes = [C.c_char_p, C.c_int64, C.POINTER(_Info)]
+    lib.mp3fe_analyze_batch.restype = None
+    lib.mp3fe_analyze_batch.argtypes = [
+        C.POINTER(C.c_char_p), C.POINTER(C.c_int64), C.c_int32, C.c_int32,
+        C.c_int32,
+        C.POINTER(C.c_int16), C.POINTER(C.c_int16), C.POINTER(C.c_int8),
+        C.POINTER(C.c_int8), C.POINTER(_Info), C.c_int32,
+    ]
+    lib.mp3fe_frame_walks.restype = C.c_int64
+    lib.mp3fe_frame_walks.argtypes = []
     lib.mp3fe_lanes_batch.restype = None
     lib.mp3fe_lanes_batch.argtypes = [
         C.POINTER(C.c_char_p), C.POINTER(C.c_int64), C.c_int32, C.c_int32,
@@ -87,6 +100,11 @@ def available() -> bool:
     except build.BuildError:
         return False
     return True
+
+
+def frame_walks() -> int:
+    """Process-wide count of native frame walks (one per blob per walk)."""
+    return int(_load().mp3fe_frame_walks())
 
 
 def _lane_buffers(B: int, G: int, ch: int, m_cap: int) -> dict:
@@ -197,6 +215,49 @@ def probe(blob: bytes) -> dict:
         sample_rate=info.sample_rate, channels=info.channels,
         n_granules=info.n_granules, joint=bool(info.joint), err=info.err,
         main_bytes=info.main_bytes,
+    )
+
+
+def analyze_batch(
+    blobs: list[bytes], g_cap: int, channels: int, joint: bool,
+    nthreads: int = 0,
+) -> dict:
+    """Analyze a uniform (channels, joint) group of MP3 blobs, the Huffman
+    decode included, for the host-Huffman route (dsp.mp3_dsp_tail).
+
+    Returns dict of zero-padded host arrays:
+      is_q  int16 [B, G, C, 576]   exp_b int16 [B, G, C, 61]
+      st    int8  [B, G, 576] or None  (stereo mode bytes; joint stereo only)
+      cfg   int8  [B, G, C]  (block_type | mixed<<2)
+      err/n_granules/sample_rate/channels int32 [B]
+    """
+    lib = _load()
+    B = len(blobs)
+    is_q = np.zeros((B, g_cap, channels, 576), np.int16)
+    exp_b = np.zeros((B, g_cap, channels, 61), np.int16)
+    st = None
+    st_ptr = C.cast(None, C.POINTER(C.c_int8))
+    if channels == 2 and joint:
+        st = np.zeros((B, g_cap, 576), np.int8)
+        st_ptr = st.ctypes.data_as(C.POINTER(C.c_int8))
+    cfg = np.zeros((B, g_cap, channels), np.int8)
+    infos = (_Info * B)()
+    buf_ptrs = (C.c_char_p * B)(*blobs)
+    lens = (C.c_int64 * B)(*[len(b) for b in blobs])
+    lib.mp3fe_analyze_batch(
+        buf_ptrs, lens, B, g_cap, channels,
+        is_q.ctypes.data_as(C.POINTER(C.c_int16)),
+        exp_b.ctypes.data_as(C.POINTER(C.c_int16)),
+        st_ptr,
+        cfg.ctypes.data_as(C.POINTER(C.c_int8)),
+        infos, nthreads,
+    )
+    return dict(
+        is_q=is_q, exp_b=exp_b, st=st, cfg=cfg,
+        err=np.asarray([i.err for i in infos], np.int32),
+        n_granules=np.asarray([i.n_granules for i in infos], np.int32),
+        sample_rate=np.asarray([i.sample_rate for i in infos], np.int32),
+        channels=np.asarray([i.channels for i in infos], np.int32),
     )
 
 

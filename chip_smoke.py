@@ -149,7 +149,17 @@ Phases:
      to the CPU's; one 10 s file's pass A and pass B device ms, planner and
      packer host ms and peak device memory at levels 5 and 8.  Every K1-K4
      call of the export, the decode back and the transcodes is held against
-     its twin on its inputs and timed.
+     its twin on its inputs and timed;
+ 15. the host-Huffman MP3 route (``decode_group_hosthuff``: mp3fe's C++
+     analysis, Huffman included, on the host, then the DSP tail on the
+     card) on the 16 copies of the committed stereo MP3 fixture that the
+     bench decodes: its launches counted alone (K2 once, for the one
+     group, and nothing else), its PCM within amplitude-scaled RMS 5e-7 of
+     the port's CPU run of the same route and of the device-Huffman route
+     (``decode_group``) on the card, metadata and error codes equal; K2
+     held against its twin on the call's inputs and timed; the warm wall
+     of both routes in turns, with the host analysis's milliseconds, and
+     one profiled run of each (device busy milliseconds, idle share).
 
 With ``--profile`` it then profiles one decode of the 16 FLAC files with
 torch.profiler and prints each FLAC stage's host and device time (the
@@ -163,7 +173,8 @@ the main path, the streams (``streams``), the Layer I/II path
 (``layer12``), the engine's decode (``engine``), the sharded runs
 (``multichip``), the FLAC export (``flac_encode``: the export's decode,
 the decode of the written files, the transcodes) and the bench
-(``bench``: one ``bench.main`` run); K5 (``window_add_spmd``)
+(``bench``: one ``bench.main`` run) and the host-Huffman MP3 route
+(``mp3_hosthuff``); K5 (``window_add_spmd``)
 has its own entry.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
 its power limit, and the line before that lists the kernels.
@@ -173,9 +184,10 @@ and a seeded Layer II stream, and runs phase 13 alone (about a minute):
 the quick check of the cross-card path on a machine with several cards.
 With ``--phase export`` it builds, runs the main path and phase 14 alone.
 With ``--phase bench`` it builds and runs the bench alone.
+With ``--phase hosthuff`` it builds and runs phase 15 alone.
 
 Usage:  python3 chip_smoke.py [--seed N] [--profile]
-                              [--phase all|multichip|export|bench]
+                              [--phase all|multichip|export|bench|hosthuff]
 """
 
 from __future__ import annotations
@@ -2847,6 +2859,131 @@ def phase_flac_export(folder: str, wavs: dict, flac_folder: str, work: str,
                     shapes=shapes.get(k, [])) for k in ENCODE_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the host-Huffman MP3 route (codecs/mpeg/decoder's
+# decode_group_hosthuff: mp3fe's analyze_batch, then mp3_dsp_tail)
+# ---------------------------------------------------------------------------
+
+
+def _route_files(pieces, n: int) -> list:
+    """A route's pieces as [(err, sample_rate, channels, pcm)] in asset
+    order."""
+    out = [None] * n
+    for idxs, batch in pieces:
+        for row, i in enumerate(idxs):
+            f = batch.file(row)
+            out[i] = (f.err, f.sample_rate, f.num_channels, f.pcm)
+    return out
+
+
+def _hold_route(label: str, ref: list, got: list) -> float:
+    """Each file's metadata and error code equal, its PCM within
+    amplitude-scaled RMS 5e-7 of ``ref``'s: the worst RMS / bar."""
+    worst = 0.0
+    for i, (r, g) in enumerate(zip(ref, got)):
+        if r[:3] != g[:3] or r[3].shape != g[3].shape:
+            fail(f"mp3_hosthuff file {i}: (err, rate, channels) {g[:3]} and "
+                 f"shape {g[3].shape} against {label}'s {r[:3]}, {r[3].shape}")
+        ok, rms, bar = scaled_rms_ok(r[3], g[3])
+        if not ok:
+            fail(f"mp3_hosthuff file {i}: RMS {rms:.3e} against {label} "
+                 f"exceeds {bar:.3e}")
+        worst = max(worst, rms / bar)
+    return worst
+
+
+def _device_busy_ms(prof) -> float:
+    """Milliseconds in which the device ran anything (kernels, copies,
+    memsets) in a torch.profiler trace: the union of the device events'
+    intervals, so nothing is counted twice."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
+def phase_mp3_hosthuff(dev, card: str) -> tuple[dict, dict]:
+    """Phase 15: ``decode_group_hosthuff`` of the bench's 16-file MP3 group
+    on the card, counted alone, against the port's CPU run and the
+    device-Huffman route; K2 held against its twin on its inputs; the warm
+    walls of both routes in turns.  Returns ({kernel: launches}, {kernel:
+    [shape entries]})."""
+    from audio_decoder_tpu_torch.codecs.mpeg import decoder as D
+    from audio_decoder_tpu_torch.io.assets import Asset
+    from audio_decoder_tpu_torch.utils.trace import TRACE
+
+    t_phase = time.perf_counter()
+    blob = open(STEREO_MP3, "rb").read()
+    assets = [Asset(path=f"m{i:02d}.mp3", name=f"m{i:02d}", ext="mp3", data=blob)
+              for i in range(N_MP3)]
+
+    def hosthuff():
+        return D.decode_group_hosthuff(assets, device=dev)
+
+    def device_huffman():
+        return D.decode_group(assets, device=dev)
+
+    pieces, launches, seen, wall = _counted_kernels(hosthuff)
+    log(f"mp3_hosthuff launches: {launches} (first run {wall * 1e3:.3f} ms)")
+    want = {k: int(k == "mp3_polyphase_synthesis") for k in launches}
+    if launches != want:
+        fail(f"mp3_hosthuff launches {launches}, want {want}")
+    if [names for _, b in pieces for names in b.names] != [a.name for a in assets]:
+        fail(f"mp3_hosthuff pieces {[(i, b.names) for i, b in pieces]}")
+    got = _route_files(pieces, len(assets))
+    if any(f[0] != 0 for f in got) or any(not np.isfinite(f[3]).all() for f in got):
+        fail("mp3_hosthuff gave an error code or non-finite PCM")
+    cpu = _route_files(D.decode_group_hosthuff(assets, device="cpu"), len(assets))
+    w_cpu = _hold_route("the CPU run", cpu, got)
+    w_dev = _hold_route("decode_group", _route_files(device_huffman(), len(assets)),
+                        got)
+    log(f"mp3_hosthuff: {len(got)} files within amplitude-scaled RMS 5e-7 of "
+        f"the CPU run (worst rms/bar {w_cpu:.3f}) and of decode_group on the "
+        f"card (worst {w_dev:.3f}); metadata and error codes equal")
+    shapes = captured_kernels(seen, "mp3_hosthuff")
+
+    audio_s = sum(f[3].shape[0] / f[1] for f in got)
+    walls = {"decode_group_hosthuff": [], "decode_group": []}
+    fns = {"decode_group_hosthuff": hosthuff, "decode_group": device_huffman}
+    for fn in fns.values():  # warm
+        fn()
+    torch.cuda.synchronize()
+    analyze = TRACE.stats["mp3/hosthuff_analyze"]
+    calls0, secs0 = analyze.calls, analyze.seconds
+    for _ in range(3):  # in turns: host, device, device, host
+        for name in (*fns, *reversed(list(fns))):
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    analyze_ms = (analyze.seconds - secs0) / (analyze.calls - calls0) * 1e3
+    for name, w in walls.items():
+        log(f"mp3_hosthuff warm wall {name}: {[round(x, 3) for x in w]} ms, "
+            f"median {float(np.median(w)):.3f} ms, "
+            f"{audio_s / float(np.median(w)) * 1e3:.1f} audio-s/s "
+            f"({audio_s:.3f} audio-s)  [{card}]")
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in fns.items():  # one run each under the profiler
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = _device_busy_ms(prof)
+        log(f"mp3_hosthuff profile {name}: wall {wall_ms:.3f} ms, device busy "
+            f"{busy:.3f} ms (idle share {1 - busy / wall_ms:.3f})  [{card}]")
+    log(f"mp3_hosthuff: mp3fe analyze_batch {analyze_ms:.3f} host ms per "
+        f"call; phase {time.perf_counter() - t_phase:.3f} s  [{card}]")
+    return launches, shapes
+
+
 def multichip_only(seed: int) -> None:
     """``--phase multichip``: the build, the main path's 16 WAV files and a
     seeded 10 s Layer II stream, then ``phase_multichip`` alone (about a
@@ -2901,16 +3038,30 @@ def bench_only() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def hosthuff_only() -> None:
+    """``--phase hosthuff``: the build, then ``phase_mp3_hosthuff`` alone."""
+    card = phase_environment()
+    phase_build()
+    launches, _ = phase_mp3_hosthuff(torch.device("cuda"), card)
+    print(json.dumps({"mp3_hosthuff": launches}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--profile", action="store_true",
                     help="profile one FLAC decode after the other phases")
-    ap.add_argument("--phase", choices=("all", "multichip", "export", "bench"),
+    ap.add_argument("--phase", choices=("all", "multichip", "export", "bench",
+                                        "hosthuff"),
                     default="all", help="multichip: the build and the "
                     "multi-device phase alone; export: the build, the main "
                     "path and the FLAC export phase; bench: the build and "
-                    "the port's bench")
+                    "the port's bench; hosthuff: the build and the "
+                    "host-Huffman MP3 route")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)  # the numpy writers of tests/
     if args.phase == "multichip":
@@ -2921,6 +3072,9 @@ def main() -> None:
         return
     if args.phase == "bench":
         bench_only()
+        return
+    if args.phase == "hosthuff":
+        hosthuff_only()
         return
 
     card = phase_environment()
@@ -2963,6 +3117,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="adt_smoke_export_") as work:
             encode = phase_flac_export(folder, wavs, flac_folder, work, dev,
                                        card, launches)
+        hosthuff_launches, hosthuff_shapes = phase_mp3_hosthuff(dev, card)
         if args.profile:
             phase_profile(flac_folder, card)
             phase_families_profile(fam_folder, card, dev)
@@ -2997,6 +3152,11 @@ def main() -> None:
         k["flac_encode"] = encode[k["name"]]
         # the port's bench: its launches in one bench.main run, counted alone
         k["bench"] = bench_launches[k["name"]]
+        # the host-Huffman MP3 route: its launches in one
+        # decode_group_hosthuff run, counted alone, and the kernel on each
+        # of its calls' inputs
+        k["mp3_hosthuff"] = dict(launches=hosthuff_launches[k["name"]],
+                                 shapes=hosthuff_shapes.get(k["name"], []))
     # K5: its kernel's launches in the sharded FLAC decode (one per call on
     # the one card of the logical mesh), its wrapper calls, the K3 launches
     # it made (none), the kernel on each launch's inputs there, and its
@@ -3009,7 +3169,8 @@ def main() -> None:
         calls=mesh_launches["flac"]["window_add_spmd"],
         k3_launches=mesh_launches["flac"]["window_add"],
         multichip=dict(shapes=mesh_shapes.get("window_add_spmd", [])),
-        bench=bench_launches["window_add_spmd_kernel"], **k5))
+        bench=bench_launches["window_add_spmd_kernel"],
+        mp3_hosthuff=hosthuff_launches["window_add_spmd_kernel"], **k5))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

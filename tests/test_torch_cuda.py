@@ -483,6 +483,35 @@ def test_decode_paths_cuda_matches_cpu(cuda_device):
         assert rms < bar, (i, rms, bar)
 
 
+def test_decode_group_hosthuff_cuda_matches_cpu(cuda_device):
+    """The host-Huffman route on the card against its CPU run on both
+    fixtures and a broken file: K2 once per group and no K1, the int8
+    stereo and block bytes copied to the card, metadata and error codes
+    equal, PCM within the RMS bar."""
+    from audio_decoder_tpu_torch.io.assets import Asset
+
+    assets = [Asset(path=p, name=os.path.basename(p).split(".")[0], ext="mp3",
+                    data=open(p, "rb").read()) for p in FIXTURES]
+    assets.append(Asset(path="bad.mp3", name="bad", ext="mp3",
+                        data=bytes(range(256)) * 16))
+    k1, k2 = HK.launches, SK.launches
+    gpu = D.decode_group_hosthuff(assets, device=cuda_device)
+    torch.cuda.synchronize()
+    assert (HK.launches - k1, SK.launches - k2) == (0, 2)  # joint, mono
+    cpu = D.decode_group_hosthuff(assets, device="cpu")
+    assert [i for i, _ in gpu] == [i for i, _ in cpu]
+    for (_, g), (_, c) in zip(gpu, cpu):
+        assert g.data.device.type == "cuda" and g.names == c.names
+        for k in ("sample_rate", "num_channels", "bits_per_sample",
+                  "valid_frames", "err"):
+            assert torch.equal(getattr(g, k).cpu(), getattr(c, k)), k
+        ref, got = c.data.numpy(), g.data.cpu().numpy()
+        assert got.shape == ref.shape
+        rms = float(np.sqrt(((ref - got) ** 2).mean()))
+        bar = 5e-7 * max(1.0, float(np.sqrt((ref ** 2).mean())) / 0.2)
+        assert rms < bar, (g.names, rms, bar)
+
+
 def test_other_families_cuda_match_cpu(cuda_device, tmp_path):
     """AIFF, AIFF-C ima4, AU, CAF, WAV IMA and MS ADPCM bit for bit and
     Layers I/II within the RMS bar, the card against the CPU path."""
