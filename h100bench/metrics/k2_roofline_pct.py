@@ -1,0 +1,13 @@
+"""K2 (csrc/mp3_synth.cu): the least time of the stretch's synthesis
+filterbanks (h100bench.roofline.k2_seconds) over K2's device time, in %."""
+
+from h100bench import roofline
+
+
+def read(run):
+    tr = run.trace
+    t = tr.kernel_s(lambda n: "mp3_synth_kernel" in n) if tr else 0.0
+    if t <= 0:
+        return None
+    least = sum(roofline.k2_seconds(run.inputs.blobs[i]) for files in tr.files for i in files)
+    return 100.0 * least / t

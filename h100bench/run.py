@@ -1,0 +1,298 @@
+"""Run one benchmark cell once and print its result as one JSON line.
+
+    python3 -m h100bench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+from the root of a checkout.  The cell, its configuration and its traffic
+mix come from ``BENCHMARK.json``; the configuration's maker makes the pool
+of files (``inputs/``, kept by ``pool.py``), the mix and the seed say
+which files each call decodes (``traffic.py``, ``mixes/``), and each
+metric is read by
+``metrics/<name>.py`` (or ``metrics/<name up to its first dot>.py``).
+The program under test is entered only through
+``audio_decoder_tpu_torch.codecs.registry.decode_assets``, on host bytes.
+
+Set-up (``setup_s``) runs from the start of this process: imports, CUDA
+initialisation, the program's libraries (built into its own ``build/`` on
+a checkout's first run), the pool of files (made on a checkout's first
+run, read after), each call's copies, and the warm-up calls.  Then
+calls go back to back, each ending in a host fetch of its metadata and a
+column of its PCM, until ``--seconds`` have passed.  With ``--trace 1``
+the profiler records the mix's stretch of calls and the per-layer metrics
+are printed instead of the end-to-end ones.  Once the window has closed,
+the outputs are held to the reference (``check.py``), and the line is
+printed only if no JAX module has been loaded in the process by then.
+"""
+
+from __future__ import annotations
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import importlib  # noqa: E402
+import importlib.util  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from . import check, pool, traffic  # noqa: E402
+from . import trace as trace_mod  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+CACHE = os.path.join(ROOT, ".h100bench_cache")
+WORKERS = min(8, os.cpu_count() or 1)
+FORBIDDEN = ("jax", "jaxlib", "flax", "audio_decoder_tpu")
+
+
+def set_cache_dirs() -> None:
+    """Every kernel and build cache at a fixed path inside the checkout."""
+    for var, sub in (("TRITON_CACHE_DIR", "triton"),
+                     ("TORCH_EXTENSIONS_DIR", "torch_extensions"),
+                     ("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("CUDA_CACHE_PATH", "cuda")):
+        os.environ[var] = os.path.join(CACHE, sub)
+
+
+def load_benchmark() -> dict:
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        return json.load(f)
+
+
+def cell_parts(bench: dict, workload: str):
+    """(cell, configuration file's contents, mix)."""
+    cell = next(w for w in bench["workloads"] if w["name"] == workload)
+    entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    with open(os.path.join(ROOT, entry["file"])) as f:
+        config = json.load(f)
+    return cell, config, traffic.load_mix(cell["traffic"])
+
+
+def cell_metrics(bench: dict, cell: dict, traced: bool) -> list[dict]:
+    """The cell's end-to-end metrics, or with a trace its per-layer ones."""
+    pool = bench["per_layer"] if traced else bench["end_to_end"]
+    return [m for m in pool if cell["name"] in m.get("workloads", [cell["name"]])]
+
+
+def reader(name: str):
+    """``metrics/<name>.py``, else ``metrics/<name up to its first dot>.py``."""
+    for stem in (name, name.split(".")[0]):
+        path = os.path.join(HERE, "metrics", f"{stem}.py")
+        if os.path.exists(path):
+            spec = importlib.util.spec_from_file_location(f"h100bench.metrics.{stem}", path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            return module.read
+    raise FileNotFoundError(f"no reader for metric {name!r}")
+
+
+def _fetch(batch, torch) -> np.ndarray:
+    """The call's host fetch: its metadata and a NaN flag of the last PCM
+    column, so that it waits for the device work that wrote the PCM."""
+    nan = torch.isnan(batch.data[:, -1]).to(torch.int32)
+    rows = [batch.sample_rate, batch.num_channels, batch.valid_frames, batch.err, nan]
+    return torch.stack([r.to(torch.int32) for r in rows]).cpu().numpy().astype(np.int64)
+
+
+def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool, *,
+             device: str = "cuda", decode=None, t_start: float = T_START,
+             cache_root: str = CACHE, workers: int = WORKERS,
+             config_over: dict | None = None, mix_over: dict | None = None) -> dict:
+    """One run of a cell: the result line's object.  The tests shrink the
+    cell (``config_over``, ``mix_over``), run it on the CPU and break
+    ``decode``, which stands in for ``decode_assets``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from audio_decoder_tpu_torch.codecs.registry import decode_assets
+    from audio_decoder_tpu_torch.io.assets import Asset
+
+    decode = decode or decode_assets
+    cell, config, mix = cell_parts(bench, workload)
+    config = {**config, **(config_over or {})}
+    mix = {**mix, **(mix_over or {})}
+    on_card = torch.device(device).type == "cuda"
+    if "torch_threads" in mix:
+        torch.set_num_threads(int(mix["torch_threads"]))
+
+    t0 = time.perf_counter()
+    inputs, made = pool.load(config, cache_root, workers)
+    pool_s = time.perf_counter() - t0
+    schedule = traffic.Schedule(mix, inputs, seed)
+    pool_assets = [Asset(path=f"{n}.{inputs.ext}", name=n, ext=inputs.ext, data=b)
+                   for n, b in zip(inputs.names, inputs.blobs)]
+    prepared = None
+    if schedule.prepared is not None:
+        prepared = [[Asset(path=f"{inputs.names[i]}.{inputs.ext}", name=inputs.names[i],
+                           ext=inputs.ext, data=b)
+                     for i, b in zip(schedule.files(k), blobs)]
+                    for k, blobs in enumerate(schedule.prepared)]
+
+    def assets_of(k: int):
+        if prepared is None:
+            return [pool_assets[i] for i in schedule.files(k)]
+        return prepared[k % len(prepared)]
+
+    warmup = int(mix["warmup_calls"])
+    t0 = time.perf_counter()
+    for k in range(warmup):
+        _fetch(decode(assets_of(k), device=device), torch)
+    if on_card:
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    setup_s = time.perf_counter() - t_start
+    print(f"set-up {setup_s:.3f} s: pool of {len(inputs.blobs)} files "
+          f"{'made' if made else 'read'} in {pool_s:.3f} s, "
+          f"{0 if prepared is None else len(prepared)} calls' rotated copies, "
+          f"warm-up {warm_s:.3f} s", file=sys.stderr)
+
+    calls: list[check.Call] = []
+    kept = traffic.Reservoir(int(mix["check_calls"]), seed)
+    skip, n_traced = int(mix["trace_skip"]), int(mix["trace_calls"])
+    prof = stretch = None
+    traced_calls: list[int] = []
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    t_window = time.perf_counter()
+    t_end = t_window
+    p = 0
+    while True:
+        if traced and p == skip:
+            prof = profile(activities=acts)
+            prof.__enter__()
+            stretch = record_function("h100bench.stretch")
+            stretch.__enter__()
+        k = warmup + p
+        assets = assets_of(k)
+        t0 = time.perf_counter()
+        with record_function("h100bench.call"):
+            batch = decode(assets, device=device)
+        with record_function("h100bench.fetch"):
+            meta = _fetch(batch, torch)
+        t_end = time.perf_counter()
+        calls.append(check.Call(k, schedule.files(k), tuple(batch.names),
+                                tuple(batch.formats), meta, t_end - t0))
+        kept.offer(p, batch)
+        del batch
+        if stretch is not None:
+            traced_calls.append(p)
+            if len(traced_calls) == n_traced:
+                stretch.__exit__(None, None, None)
+                prof.__exit__(None, None, None)
+                stretch = None
+        p += 1
+        if t_end - t_window >= seconds and (not traced or len(traced_calls) == n_traced):
+            break
+    wall_s = t_end - t_window
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    # the program's state goes before the references run
+    outputs = {}
+    for q, b in kept.kept.items():
+        rows = check.rows_to_check(mix, seed, calls[q].k)
+        outputs[q] = (b.data[rows].cpu().numpy(), b.channels, rows)
+    kept.kept.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def audio_of(c: check.Call) -> float:
+        ok = c.meta[3] == 0
+        return float((c.meta[2][ok] / np.maximum(c.meta[0][ok], 1)).sum())
+
+    tr = None
+    if traced:
+        tr = trace_mod.from_profile(prof, len(traced_calls), [calls[j].files for j in traced_calls],
+                                    sum(audio_of(calls[j]) for j in traced_calls))
+
+    t0 = time.perf_counter()
+    checks, failed = check.judge(config, inputs, calls, outputs, schedule.blobs, workers)
+    judge_s = time.perf_counter() - t0
+    run = SimpleNamespace(setup_s=setup_s, wall_s=wall_s, calls=calls,
+                          audio_s=sum(audio_of(c) for c in calls),
+                          latencies=np.array([c.seconds for c in calls]),
+                          trace=tr, inputs=inputs, config=config, cell=cell)
+    metrics = {}
+    for m in cell_metrics(bench, cell, traced):
+        value = reader(m["name"])(run)
+        if value is not None:
+            metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    dev = {"platform": "gpu" if on_card else "cpu",
+           "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
+           "count": int(cell["chips"]), "memory_peak_bytes": int(peak)}
+    if tr is not None:
+        dev.update(busy_s=tr.busy_s, window_s=tr.window_s)
+    result = {"correct": all(v <= lim for v, lim in checks.values()) and failed == 0,
+              "attempted": len(calls), "failed": failed, "metrics": metrics, "device": dev}
+    if tr is not None:
+        result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
+    q = np.percentile(run.latencies, [0, 25, 50, 75, 100]) * 1e3
+    n_files = sum(len(r) for _, _, r in outputs.values())
+    print(f"window {wall_s:.3f} s, {len(calls)} calls, {run.audio_s:.3f} audio-s, "
+          f"{n_files} files of {len(outputs)} calls compared in {judge_s:.3f} s; "
+          "call ms min/q1/median/q3/max " + "/".join(f"{v:.2f}" for v in q)
+          + "; first calls ms " + " ".join(f"{c.seconds * 1e3:.2f}" for c in calls[:5]),
+          file=sys.stderr)
+    result["checks"] = {name: {"value": v, "limit": lim} for name, (v, lim) in checks.items()}
+    return result
+
+
+def forbidden_modules() -> list[str]:
+    """JAX, its relatives or the JAX package, by whole top-level name, in
+    this process."""
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def card_line() -> str:
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30).stdout
+        return out.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "nvidia-smi gave nothing"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    set_cache_dirs()
+    bench = load_benchmark()
+    chips = next(w for w in bench["workloads"] if w["name"] == args.workload)["chips"]
+
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"needs {chips} CUDA device(s); torch sees "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 2
+    result = run_cell(bench, args.workload, args.seed % (1 << 64), args.seconds,
+                      bool(args.trace))
+    print(f"card: {card_line()}", file=sys.stderr)
+    for name, c in result["checks"].items():
+        print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
+    return emit(result)
+
+
+def emit(result: dict) -> int:
+    """Print the result line, last, unless JAX or the JAX package has been
+    loaded in this process by then: then exit 3 with no result."""
+    found = forbidden_modules()
+    if found:
+        print(f"loaded in the process: {', '.join(found)}; no result", file=sys.stderr)
+        return 3
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
