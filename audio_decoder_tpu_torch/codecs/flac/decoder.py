@@ -18,11 +18,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ...core import errors as E
-from ...core.batch import AudioBatch
-from ...utils.trace import TRACE
+from ...core.batch import AudioBatch, host_audio_seconds
+from ...utils.trace import TRACE, span, to_device, to_host
 from . import frontend
 from .device import flac_decode_wire, rice_k
 
@@ -71,7 +70,7 @@ def _pad1(arrs: list[np.ndarray], cap: int, dtype) -> np.ndarray:
 
 
 def _meta(values, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(values, np.int32), device=device)
+    return to_device(np.asarray(values, np.int32), device)
 
 
 def _error_batch(names, codes, device) -> AudioBatch:
@@ -242,7 +241,7 @@ def pack_group(analyses: list[frontend.FlacAnalysis], device,
     """Pack one same-channel-count group into ``device.flac_decode_batch``'s
     ``(positional tensors on device, static kwargs)``."""
     fields, statics = _pack_np(analyses, sizing)
-    return tuple(torch.as_tensor(f, device=device) for f in fields), statics
+    return tuple(to_device(f, device) for f in fields), statics
 
 
 def pack_wire(analyses: list[frontend.FlacAnalysis], device,
@@ -255,14 +254,14 @@ def pack_wire(analyses: list[frontend.FlacAnalysis], device,
     ``stream`` = (bufs_dev, file_off, file_bits): a byte tensor already on
     the device (decode_group copies it before the walk); its layout MUST
     match _plan_stream's for the same file list."""
-    with record_function("flac.pack"):
+    with span("flac.pack"):
         if stream is not None:
             bufs_dev, file_off, file_bits = stream
             fields, statics = _pack_np(analyses, sizing,
                                        stream=(file_off, file_bits))
         else:
             fields, statics = _pack_np(analyses, sizing)
-            bufs_dev = torch.as_tensor(fields[0], device=device)
+            bufs_dev = to_device(fields[0], device)
         B = fields[1].shape[0]
         Lr, Lw, Ld = fields[3].shape[0], fields[9].shape[0], fields[15].shape[0]
         F = fields[23].shape[0]
@@ -270,7 +269,7 @@ def pack_wire(analyses: list[frontend.FlacAnalysis], device,
             [f.reshape(-1) for f in fields[1:27]]
             + [np.ascontiguousarray(fields[27]).view(np.int32)])
         statics = dict(statics, B=B, F=F, Lr=Lr, Lw=Lw, Ld=Ld)
-        return (bufs_dev, torch.as_tensor(desc, device=device)), statics
+        return (bufs_dev, to_device(desc, device)), statics
 
 
 def _decode_batch(analyses: list[frontend.FlacAnalysis], names: list[str],
@@ -292,10 +291,12 @@ def _decode_batch(analyses: list[frontend.FlacAnalysis], names: list[str],
     )
 
 
-def _host_piece(idxs: list[int], assets, device) -> tuple[list[int], AudioBatch]:
+def _host_piece(idxs: list[int], assets, device
+                ) -> tuple[list[int], AudioBatch, float]:
     """Decode 26-32-bit files on the host (int64-exact; host.decode_ints)
     and batch the nearest-f32 PCM — the f32 surface is lossless through
-    25 bits, same contract as 32-bit-int WAV."""
+    25 bits, same contract as 32-bit-int WAV.  Returns the piece and its
+    decoded audio-seconds."""
     from . import host
 
     names, codes, pcms, infos = [], [], [], []
@@ -319,21 +320,23 @@ def _host_piece(idxs: list[int], assets, device) -> tuple[list[int], AudioBatch]
             row[: p.shape[0], : p.shape[1]] = p.astype(np.float32)
             data[k] = row.reshape(-1)
     return idxs, AudioBatch(
-        data=torch.as_tensor(data, device=device), channels=cmax,
+        data=to_device(data, device), channels=cmax,
         sample_rate=_meta([i_["rate"] for i_ in infos], device),
         num_channels=_meta([i_["channels"] for i_ in infos], device),
         bits_per_sample=_meta([i_["bits"] for i_ in infos], device),
         valid_frames=_meta([i_["total"] for i_ in infos], device),
         err=_meta(codes, device),
         names=tuple(names), formats=("flac",) * len(idxs),
-    )
+    ), host_audio_seconds([i_["total"] for i_ in infos],
+                          [i_["rate"] for i_ in infos])
 
 
 def _chunked_piece(i: int, an: frontend.FlacAnalysis, name: str, device
-                   ) -> tuple[list[int], AudioBatch]:
+                   ) -> tuple[list[int], AudioBatch, float]:
     """One-shot decode of a >BIT_CAP file through the frame-chunked path
     (stream.slice_frames rebases every chunk's bit positions near zero,
-    so int32 device lanes hold them no matter the file size)."""
+    so int32 device lanes hold them no matter the file size).  Returns the
+    piece and its decoded audio-seconds."""
     from .stream import slice_frames
 
     F = an.n_frames
@@ -353,10 +356,10 @@ def _chunked_piece(i: int, an: frontend.FlacAnalysis, name: str, device
     sz = sizing_for(slices, combine="max") if slices else None
     for sl in slices:
         b = _decode_batch([sl], [name], device, sizing=sz)
-        code = int(b.err[0])
+        code = int(to_host(b.err[:1])[0])
         if code:
             # a bad chunk fails THIS file (error piece), not the family
-            return [i], _error_batch([name], [code], device)
+            return [i], _error_batch([name], [code], device), 0.0
         outs.append(b.data[0].reshape(-1, b.channels)[: sl.total])
     pcm = (torch.cat(outs, dim=0) if outs
            else torch.zeros((0, an.channels), dtype=torch.float32, device=device))
@@ -368,7 +371,7 @@ def _chunked_piece(i: int, an: frontend.FlacAnalysis, name: str, device
         valid_frames=_meta([an.total], device),
         err=_meta([0], device),
         names=(name,), formats=("flac",),
-    )
+    ), host_audio_seconds([an.total], [an.sample_rate])
 
 
 def decode_group(assets, *, device) -> list[tuple[list[int], AudioBatch]]:
@@ -426,14 +429,13 @@ def decode_group(assets, *, device) -> list[tuple[list[int], AudioBatch]]:
         datas = [assets[i].data for i in sub]
         file_off, file_bits, packed = _plan_stream(datas)
         ntot = _bucket_fine(packed, 1024)
-        with record_function("flac.h2d"):
-            bufs_dev = torch.as_tensor(_build_stream(datas, file_off, ntot),
-                                       device=device)
+        with span("flac.h2d"):
+            bufs_dev = to_device(_build_stream(datas, file_off, ntot), device)
         pending.append((sub, bufs_dev, file_off, file_bits, ntot))
 
     analyses: dict[int, frontend.FlacAnalysis] = {}
     failed: list[tuple[int, int]] = []
-    with TRACE.stage("flac/walk"), record_function("flac.walk"):
+    with span("flac.walk"):
         # one native session walks every blob exactly once, threaded in C
         results = frontend.analyze_batch([assets[i].data for i in walk_idx])
         for i, r in zip(walk_idx, results):
@@ -443,6 +445,7 @@ def decode_group(assets, *, device) -> list[tuple[list[int], AudioBatch]]:
                 analyses[i] = r
 
     pieces: list[tuple[list[int], AudioBatch]] = []
+    seconds = 0.0  # decoded audio-seconds, from the host's metadata
     if failed:
         pieces.append((
             [i for i, _ in failed],
@@ -450,14 +453,16 @@ def decode_group(assets, *, device) -> list[tuple[list[int], AudioBatch]]:
                          [c for _, c in failed], device),
         ))
     if host_route:
-        with TRACE.stage("flac/host"):
-            pieces.append(_host_piece(host_route, assets, device))
+        with span("flac.host"):
+            idxs, batch, secs = _host_piece(host_route, assets, device)
+        pieces.append((idxs, batch))
+        seconds += secs
 
     for sub, bufs_dev, file_off, file_bits, ntot in pending:
         ok = [i for i in sub if i in analyses]
         if not ok:
             continue  # every file already in the error piece
-        with TRACE.stage("flac/device"):
+        with span("flac.device"):
             if len(ok) == len(sub):
                 sz = sizing_for([analyses[i] for i in sub])
                 sz["ntot"] = ntot  # MUST match the pre-copied tensor
@@ -471,9 +476,14 @@ def decode_group(assets, *, device) -> list[tuple[list[int], AudioBatch]]:
                 batch = _decode_batch([analyses[i] for i in ok],
                                       [assets[i].name for i in ok], device)
         pieces.append((ok, batch))
+        seconds += host_audio_seconds([analyses[i].total for i in ok],
+                                      [analyses[i].sample_rate for i in ok])
     for i in big:
         if i in analyses:
-            with TRACE.stage("flac/device"):
-                pieces.append(_chunked_piece(i, analyses[i], assets[i].name,
-                                             device))
+            with span("flac.device"):
+                idxs, batch, secs = _chunked_piece(i, analyses[i],
+                                                   assets[i].name, device)
+            pieces.append((idxs, batch))
+            seconds += secs
+    TRACE.add("decode.flac", seconds)
     return pieces

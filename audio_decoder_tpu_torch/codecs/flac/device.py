@@ -37,10 +37,10 @@ values and one for the PCM, as in the JAX package's mesh route.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ...ops.bytes import peek32
 from ...ops.window_add import window_add, window_add2
+from ...utils.trace import span
 from .frontend import Q_CAP  # max in-lane unary quotient
 
 # Rice scan geometry, as in the JAX program: the narrow variant (every rice
@@ -213,14 +213,14 @@ def _lane_windows(bytes_u8, limit, rl_file, rl_bitpos, rl_count, rl_param,
     order == destination order, the window-add kernels' contract."""
     dev = bytes_u8.device
     W = rice_steps * rice_k(rice_narrow)
-    with record_function("flac.fixed_width"):
+    with span("flac.fixed_width"):
         fwv = _fixed_width(bytes_u8, fw_bitpos, fw_width,
                            limit[fw_file.long()], fw_imax)
         fvalid = (torch.arange(fw_imax, device=dev)[None, :]
                   < fw_count[:, None])
         fw_starts = (fw_sub * (nmax + 1) + fw_dest).to(torch.int32)
         fw_upd = torch.where(fvalid, fwv, 0)
-    with record_function("flac.rice_scan"):
+    with span("flac.rice_scan"):
         rv, ovf_l = _rice_scan(bytes_u8, rl_bitpos, rl_count, rl_param,
                                limit[rl_file.long()], rice_steps, rice_narrow)
         rvalid = torch.arange(W, device=dev)[None, :] < rl_count[:, None]
@@ -232,7 +232,7 @@ def _lane_windows(bytes_u8, limit, rl_file, rl_bitpos, rl_count, rl_param,
 def _direct_values(vals_flat, dv_sub, dv_dest, dv_val, nmax: int):
     """Add the host-decoded quotient outliers into the flat values;
     padding rows carry an out-of-range dest and drop."""
-    with record_function("flac.direct_values"):
+    with span("flac.direct_values"):
         n_vals = vals_flat.shape[0]
         dv_idx = dv_sub.to(torch.int64) * (nmax + 1) + dv_dest.to(torch.int64)
         keep = (dv_idx >= 0) & (dv_idx < n_vals)
@@ -250,10 +250,10 @@ def _frame_windows(vals, sub_kind, sub_order, sub_shift, sub_wasted,
     interleaved output."""
     dev = vals.device
     F = fr_file.shape[0]
-    with record_function("flac.predict"):
+    with span("flac.predict"):
         s = _predict(vals, sub_kind, sub_order, sub_shift, sub_wasted,
                      sub_coeffs, nmax)
-    with record_function("flac.stereo"):
+    with span("flac.stereo"):
         sub_pcm = _stereo(s.reshape(F, channels, nmax), fr_mode, channels)
         pcm_f = sub_pcm.to(torch.float32) * fr_scale[:, None, None]
         W_pcm = nmax * channels
@@ -267,9 +267,8 @@ def _frame_windows(vals, sub_kind, sub_order, sub_shift, sub_wasted,
 def _scan_limit(file_off, file_bits, n_bytes: int):
     """Each file's scan limit (absolute bits), int64 ``[B]``."""
     i64 = torch.int64
-    return torch.minimum(file_off.to(i64) + file_bits.to(i64),
-                         torch.tensor(_scan_limit_cap(n_bytes), dtype=i64,
-                                      device=file_off.device))
+    return (file_off.to(i64) + file_bits.to(i64)).clamp(
+        max=_scan_limit_cap(n_bytes))
 
 
 def flac_decode_batch(
@@ -326,7 +325,7 @@ def flac_decode_batch(
         rl_dest, fw_file, fw_bitpos, fw_count, fw_width, fw_sub, fw_dest,
         nmax=nmax, rice_steps=rice_steps, fw_imax=fw_imax,
         rice_narrow=rice_narrow)
-    with record_function("flac.window_add2"):
+    with span("flac.window_add2"):
         # both lane sets into the flat values in one pass: K4
         k4_args = (rl_starts, rl_upd, fw_starts, fw_upd, n_vals)
         vals_flat = window_add2(*k4_args)
@@ -342,7 +341,7 @@ def flac_decode_batch(
     n_pcm = B_out * smax * channels + nmax * channels
     if stage == "windows":
         return {"window_add2": k4_args, "window_add": (starts, upd, n_pcm)}
-    with record_function("flac.window_add"):
+    with span("flac.window_add"):
         out = window_add(starts, upd, n_pcm)
         pcm = out[: B_out * smax * channels].reshape(B_out, smax * channels)
 
@@ -401,7 +400,7 @@ def _decode_on_mesh(mesh, bytes_u8, file_off, file_bits, *desc, channels: int,
                 fw_file, fw_bitpos, fw_count, fw_width, fw_sub, fw_dest)),
             nmax=nmax, rice_steps=rice_steps, fw_imax=fw_imax,
             rice_narrow=rice_narrow))
-    with record_function("flac.window_add_spmd"):
+    with span("flac.window_add_spmd"):
         rl_vals = window_add_spmd(M.Sharded(tuple(s[0] for s in sets)),
                                   M.Sharded(tuple(s[1] for s in sets)),
                                   n_vals, mesh=mesh, to=devs)
@@ -425,7 +424,7 @@ def _decode_on_mesh(mesh, bytes_u8, file_off, file_bits, *desc, channels: int,
                                     fr_mode, fr_scale)),
             channels=channels, nmax=nmax, smax=smax))
     n_pcm = B_out * smax * channels + nmax * channels
-    with record_function("flac.window_add_spmd"):
+    with span("flac.window_add_spmd"):
         out = window_add_spmd(M.Sharded(tuple(f[0] for f in frames)),
                               M.Sharded(tuple(f[1] for f in frames)),
                               n_pcm, mesh=mesh, to=devs)

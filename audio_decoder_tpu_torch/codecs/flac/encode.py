@@ -32,11 +32,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.nn.functional import pad as _pad
-from torch.profiler import record_function
 
 from ...ops.bytes import _exp2_xla, f32_to_i32
 from ...utils import threefry
 from ...utils.threefry import _fma
+from ...utils.trace import span
 from .frontend import crc8, crc16, pcm_md5
 
 __all__ = ["encode_flac"]
@@ -721,24 +721,24 @@ def encode_flac(
 
     dev = resolve_device(device)
     nv = torch.as_tensor(nvalid.astype(np.int32), device=dev)
-    with record_function("flac.encode.pass_a"):
+    with span("flac.encode.pass_a"):
         wins = (torch.as_tensor(window_bank(tuple(apodizations), blocksize),
                                 device=dev) if maxo > 0 else None)
         out = flac_cost_batch(
             torch.as_tensor(xb, device=dev), nv, wins,
             bits=bits, channels=C, nmax=blocksize, maxo=maxo, dither=dither)
-    with record_function("flac.encode.plan"):
+    with span("flac.encode.plan"):
         plan = _plan_predictors(
             _fetch(out, ("fixed_cost", "fixed_order", "is_const", "acorr")),
             nvalid, bits=bits, channels=C, maxo=maxo, nmax=blocksize)
     _mode, sel, _kind, order, shift, coeffs, _prec = plan
-    with record_function("flac.encode.pass_b"):
+    with span("flac.encode.pass_b"):
         res = flac_residual_batch(
             out["cands"], nv, *(torch.as_tensor(a, device=dev)
                                 for a in (sel, order, coeffs, shift)),
             channels=C, nmax=blocksize, npart=npart,
             maxo=max(maxo, _ORDERS - 1))
-    with record_function("flac.encode.pack"):
+    with span("flac.encode.pack"):
         fetched = _fetch(res, ("sub", "resid", "psums"))
         fetched["ints"] = out["ints"].cpu().numpy()
         return _emit(plan, fetched, nvalid, S=S, C=C, bits=bits,

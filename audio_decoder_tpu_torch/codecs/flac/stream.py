@@ -17,6 +17,7 @@ from typing import Iterator
 import numpy as np
 
 from ...core import errors as E
+from ...utils.trace import to_host
 from . import frontend
 from .decoder import _decode_batch, sizing_for
 
@@ -101,8 +102,7 @@ class FlacStream:
                 continue
             batch = _decode_batch([sl], [f"chunk{k}"], self.device,
                                   sizing=self._sizing)
-            E.raise_for_code(int(batch.err[0]), "flac stream")
-            pcm = batch.data[0].cpu().numpy().reshape(
-                -1, batch.channels)[: sl.total]
+            E.raise_for_code(int(to_host(batch.err[:1])[0]), "flac stream")
+            pcm = to_host(batch.data[0]).reshape(-1, batch.channels)[: sl.total]
             skip = max(0, start_sample - lo)
             yield pcm[skip:]

@@ -32,11 +32,10 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ...core import errors as E
-from ...core.batch import AudioBatch
-from ...utils.trace import TRACE
+from ...core.batch import AudioBatch, host_audio_seconds
+from ...utils.trace import TRACE, span, to_device, to_host
 from . import frontend
 from . import layer12 as L12
 from . import native
@@ -69,7 +68,7 @@ def _error_batch(names, codes, device) -> AudioBatch:
         num_channels=z(),
         bits_per_sample=z(),
         valid_frames=z(),
-        err=torch.as_tensor(np.asarray(codes, np.int32), device=device),
+        err=_meta(codes, device),
         names=tuple(names),
         formats=("mp3",) * n,
     )
@@ -92,7 +91,7 @@ def _resolve(device) -> torch.device:
 
 
 def _meta(vals, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(vals, np.int32), device=device)
+    return to_device(np.asarray(vals, np.int32), device)
 
 
 def analyze_assets(assets: "list[Asset]"):
@@ -119,7 +118,7 @@ def _tail_batch(is_q, exp_b, st, cfg, sample_rate, channels, n_granules, err,
     B, G = is_q.shape[:2]
 
     def put(a, shape):
-        return torch.as_tensor(a.reshape(shape), device=device)
+        return to_device(a.reshape(shape), device)
 
     pcm = mp3_dsp_tail(
         put(is_q, (B, G * ch, 576)),
@@ -194,7 +193,7 @@ def _decode_group_native(
 
     for (ch, joint), idxs in groups.items():
         g_cap = _bucket(max(probes[i]["n_granules"] for i in idxs))
-        with TRACE.stage("mp3/hosthuff_analyze"):
+        with span("mp3.hosthuff_analyze"):
             r = native.analyze_batch([assets[i].data for i in idxs], g_cap,
                                      ch, joint)
         batch = _tail_batch(
@@ -294,8 +293,8 @@ def fused_wire_args(r: dict, rate_idx, device) -> list:
     valid = np.where(ok, np.asarray(r["valid"]), 0)
 
     def put(a, shape):
-        return torch.as_tensor(np.ascontiguousarray(np.asarray(a).reshape(shape)),
-                               device=device)
+        return to_device(np.ascontiguousarray(np.asarray(a).reshape(shape)),
+                         device)
 
     return [
         put(r["main"], r["main"].shape),
@@ -345,34 +344,36 @@ def _decode_group_fused(
         B = len(idxs)
         g_cap = _bucket(max(probes[i]["n_granules"] for i in idxs))
         m_cap = _bucket(max(probes[i]["main_bytes"] for i in idxs), 1024)
-        r = sess.lanes_batch([sess_idx[i] for i in idxs], g_cap, m_cap, ch)
-        n_big = _n_big(r["big"], r["valid"])
-        perm, buckets = _plan_buckets(
-            r["big"].reshape(-1), r["valid"].reshape(-1), n_big
-        )
+        with span("mp3.wire"):
+            r = sess.lanes_batch([sess_idx[i] for i in idxs], g_cap, m_cap, ch)
+            n_big = _n_big(r["big"], r["valid"])
+            perm, buckets = _plan_buckets(
+                r["big"].reshape(-1), r["valid"].reshape(-1), n_big
+            )
+            wire = fused_wire_args(r, _rate_idx_arr(r["sample_rate"]), device)
+            wire.append(None if perm is None else to_device(perm, device))
+            meta = dict(
+                sample_rate=_meta(r["sample_rate"], device),
+                num_channels=_meta(r["channels"], device),
+                bits_per_sample=_meta(np.full((B,), 16), device),  # nominal
+                valid_frames=_meta(r["n_granules"] * 576, device),
+                err=_meta(r["err"], device),
+            )
         pcm = mp3_decode_fused(
-            *fused_wire_args(r, _rate_idx_arr(r["sample_rate"]), device),
-            None if perm is None else torch.as_tensor(perm, device=device),
+            *wire,
             channels=ch,
             joint_stereo=joint,
             granules_per_frame=gpf,
             buckets=buckets,
         )
-
-        def meta(a):
-            return torch.as_tensor(np.asarray(a, np.int32), device=device)
-
         batch = AudioBatch(
-            data=pcm, channels=ch,
-            sample_rate=meta(r["sample_rate"]),
-            num_channels=meta(r["channels"]),
-            bits_per_sample=meta(np.full((B,), 16)),  # MP3 nominal depth
-            valid_frames=meta(r["n_granules"] * 576),
-            err=meta(r["err"]),
+            data=pcm, channels=ch, **meta,
             names=tuple(assets[i].name for i in idxs),
             formats=("mp3",) * B,
         )
         pieces.append((idxs, batch))
+        TRACE.add("decode.mp3", host_audio_seconds(r["n_granules"] * 576,
+                                                   r["sample_rate"]))
     return pieces
 
 
@@ -390,8 +391,7 @@ def pack_layer12(analyses: list, device) -> tuple:
         codes[b, : a.n_frames] = a.codes
         cls[b, : a.n_frames] = a.cls
         sf_idx[b, : a.n_frames] = a.sf_idx
-    return tuple(torch.as_tensor(x, device=device)
-                 for x in (codes, cls, sf_idx))
+    return tuple(to_device(x, device) for x in (codes, cls, sf_idx))
 
 
 def _decode_group_layer12(
@@ -404,7 +404,7 @@ def _decode_group_layer12(
     analyze = L12.analyze_l1 if layer == 1 else L12.analyze_l2
     analyses: list = []
     failures: list = []
-    with TRACE.stage("l12/analyze"), record_function("l12.analyze"):
+    with span("l12.analyze"):
         for i, a in enumerate(assets):
             try:
                 analyses.append((i, analyze(a.data)))
@@ -431,21 +431,20 @@ def _decode_group_layer12(
         steps = ans[0].steps_per_frame
         pcm = L12.l12_synthesize(*pack_layer12(ans, device), channels=ch,
                                  steps=steps)
-
-        def meta(vals):
-            return torch.as_tensor(np.asarray(vals, np.int32), device=device)
-
+        rates = [a.sample_rate for a in ans]
+        frames = [a.n_frames * steps * 32 for a in ans]
         batch = AudioBatch(
             data=pcm, channels=ch,
-            sample_rate=meta([a.sample_rate for a in ans]),
-            num_channels=meta([a.channels for a in ans]),
-            bits_per_sample=meta(np.full((B,), 16)),
-            valid_frames=meta([a.n_frames * steps * 32 for a in ans]),
-            err=meta(np.zeros((B,))),
+            sample_rate=_meta(rates, device),
+            num_channels=_meta([a.channels for a in ans], device),
+            bits_per_sample=_meta(np.full((B,), 16), device),
+            valid_frames=_meta(frames, device),
+            err=_meta(np.zeros((B,)), device),
             names=tuple(assets[i].name for i in idxs),
             formats=(f"mp{layer}",) * B,
         )
         pieces.append((idxs, batch))
+        TRACE.add("decode.mp3", host_audio_seconds(frames, rates))
     return pieces
 
 
@@ -457,8 +456,13 @@ def decode_group(assets: "list[Asset]", *, device) -> list[tuple[list[int], Audi
     the layer of the first valid frame and serves the Layer III grouping
     probes and lane emission from its stored frame tables.  Layers I/II
     take the fixed-width subband path; Layer III (or undetected: the
-    fused path reports its errors) the fused on-device-Huffman path."""
-    with native.Mp3Session([a.data for a in assets]) as sess:
+    fused path reports its errors) the fused on-device-Huffman path.
+    Spans: ``mp3.walk`` (the session's walk), then per Layer III group
+    ``mp3.wire`` and the device stages of ``dsp.mp3_decode_fused``; each
+    piece's decoded audio-seconds go to ``decode.mp3``."""
+    with span("mp3.walk"):
+        sess = native.Mp3Session([a.data for a in assets])
+    with sess:
         by_layer: dict[int, list[int]] = {}
         for i, layer in enumerate(sess.layers):
             by_layer.setdefault(layer, []).append(i)
@@ -638,7 +642,7 @@ class Mp3Stream:
             buckets=self._buckets,
         )
         # the decode emits flat interleaved [B, S*C]; host reshape is free
-        return pcm[0].cpu().numpy().reshape(-1, self.channels)
+        return to_host(pcm[0]).reshape(-1, self.channels)
 
     def chunks(self, start_sample: int = 0):
         """Yield float32 [samples, channels] host arrays in stream order.
@@ -727,7 +731,7 @@ class L12Stream:
         sub = self._frames[lo:hi]
         b0 = sub[0][0]
         b1 = sub[-1][0] + sub[-1][1]["frame_len"]
-        with TRACE.stage("l12/analyze"), record_function("l12.analyze"):
+        with span("l12.analyze"):
             an = self._analyze(
                 self._blob[b0:b1], frames=[(p - b0, h) for p, h in sub])
         n = hi - lo
@@ -752,11 +756,10 @@ class L12Stream:
         for a in range(f0, self.n_frames, self.fpc):
             lo = max(a - self.WARMUP, 0)
             hi = min(a + self.fpc, self.n_frames)
-            pcm = L12.l12_synthesize(
-                *(torch.as_tensor(x, device=self.device)
-                  for x in self.chunk_arrays(lo, hi)),
+            pcm = to_host(L12.l12_synthesize(
+                *(to_device(x, self.device) for x in self.chunk_arrays(lo, hi)),
                 channels=ch, steps=self.spf,
-            )[0].cpu().numpy().reshape(-1, ch)  # flat interleaved
+            )[0]).reshape(-1, ch)  # flat interleaved
             keep = a - lo
             out = pcm[keep * spfr : (keep + hi - a) * spfr, :ch]
             if trim:

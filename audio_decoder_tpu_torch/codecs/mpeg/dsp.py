@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.trace import span, to_device
 from . import tables as T
 
 # ---------------------------------------------------------------------------
@@ -174,8 +175,7 @@ def _consts(device) -> dict:
     c = _DEV_CONSTS.get(device)
     if c is None:
         def f32(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                   device=device)
+            return to_device(np.asarray(a), device, torch.float32)
 
         c = dict(
             w_all=f32(_W_ALL),
@@ -186,9 +186,8 @@ def _consts(device) -> dict:
             aa_cs=f32(T.AA_CS),
             aa_ca=f32(T.AA_CA),
             l2b=[(f32(oh), vs) for oh, vs in _L2B_VARIANTS],
-            seg_id=torch.as_tensor(_SEG_SFB * 3 + _SEG_WIN, dtype=torch.int64,
-                                   device=device),
-            lb=torch.as_tensor(_LB, dtype=torch.int64, device=device),
+            seg_id=to_device(_SEG_SFB * 3 + _SEG_WIN, device, torch.int64),
+            lb=to_device(_LB, device, torch.int64),
         )
         _DEV_CONSTS[device] = c
     return c
@@ -263,11 +262,14 @@ def mp3_dsp_tail(
     exp_b = exp_b.reshape(B, G, C, 61)
     blockcfg = blockcfg.reshape(B, G, C)
 
+    dev = is_q.device
     cfg, win_idx, aa_bound = _expand_blockcfg(blockcfg)
-    x = _requantize(is_q, exp_b, cfg, rate_idx)
+    with span("mp3.requantize", dev):
+        x = _requantize(is_q, exp_b, cfg, rate_idx)
     if C == 2 and joint_stereo and st_mode is not None:
-        st = _consts(x.device)["st_lut"][st_mode.reshape(B, G, 576).to(torch.int64)]
-        x = _apply_stereo_coeffs(x, st)
+        with span("mp3.stereo", dev):
+            st = _consts(dev)["st_lut"][st_mode.reshape(B, G, 576).to(torch.int64)]
+            x = _apply_stereo_coeffs(x, st)
     return _hybrid_synthesis(x, win_idx, aa_bound)
 
 
@@ -362,8 +364,12 @@ def _fixed_rows_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _hybrid_synthesis(x, win_idx, aa_bound):
-    """Antialias → hybrid IMDCT → overlap-add → polyphase synthesis."""
-    return polyphase_synthesis(_hybrid_subbands(x, win_idx, aa_bound))
+    """Antialias → hybrid IMDCT → overlap-add → polyphase synthesis, in the
+    spans ``mp3.imdct`` and ``mp3.synth``."""
+    with span("mp3.imdct", x.device):
+        ts = _hybrid_subbands(x, win_idx, aa_bound)
+    with span("mp3.synth", x.device):
+        return polyphase_synthesis(ts)
 
 
 def _hybrid_subbands(x, win_idx, aa_bound):
@@ -617,34 +623,38 @@ def fused_subband_samples(
 
     blockcfg_ = blockcfg.reshape(B, G, C)
     cfg, win_idx, aa_bound = _expand_blockcfg(blockcfg_)
-    lane_args = wire_lane_args(start_bit, end_rel, limit_rel, big_values,
-                               region1, region2, tsel, c1sel, valid, rate_idx,
-                               cfg)
     if buckets is None:
         buckets = ((N, n_big, n_c1),)
-    lines, fail = decode_buckets(main_u8, lane_args, perm, buckets)
-    # an entropy failure silences the whole frame (2 granules for MPEG-1,
-    # 1 for LSF); failed-but-invalid lanes are already zero
-    gpf = granules_per_frame
-    fail_real = fail & (valid.reshape(N) > 0)
-    fail_f = fail_real.reshape(B, G // gpf, gpf * C).any(dim=-1)
-    fail_g = fail_f.repeat_interleave(gpf, dim=1)  # [B, G]
-    is_q = torch.where(fail_g[..., None, None], torch.zeros((), dtype=lines.dtype,
-                                                            device=dev),
-                       lines.reshape(B, G, C, 576))
+    with span("mp3.entropy", dev):
+        lane_args = wire_lane_args(start_bit, end_rel, limit_rel, big_values,
+                                   region1, region2, tsel, c1sel, valid,
+                                   rate_idx, cfg)
+        lines, fail = decode_buckets(main_u8, lane_args, perm, buckets)
+        # an entropy failure silences the whole frame (2 granules for
+        # MPEG-1, 1 for LSF); failed-but-invalid lanes are already zero
+        gpf = granules_per_frame
+        fail_real = fail & (valid.reshape(N) > 0)
+        fail_f = fail_real.reshape(B, G // gpf, gpf * C).any(dim=-1)
+        fail_g = fail_f.repeat_interleave(gpf, dim=1)  # [B, G]
+        is_q = torch.where(fail_g[..., None, None],
+                           torch.zeros((), dtype=lines.dtype, device=dev),
+                           lines.reshape(B, G, C, 576))
 
-    exp_b = (
-        exp_base.reshape(B, G, C, 1).to(i32)
-        - exp_d.reshape(B, G, C, 61).to(i32)
-    ).to(torch.int16)
-    x = _requantize(is_q, exp_b, cfg, rate_idx)
+    with span("mp3.requantize", dev):
+        exp_b = (
+            exp_base.reshape(B, G, C, 1).to(i32)
+            - exp_d.reshape(B, G, C, 61).to(i32)
+        ).to(torch.int16)
+        x = _requantize(is_q, exp_b, cfg, rate_idx)
     if C == 2 and joint_stereo:
-        st = derive_stereo_coeffs(
-            is_q[:, :, 1], st_flags, sfr_bands.reshape(B, G, 61),
-            blockcfg_[:, :, 1], rate_idx,
-        )
-        x = _apply_stereo_coeffs(x, st)
-    return _hybrid_subbands(x, win_idx, aa_bound)
+        with span("mp3.stereo", dev):
+            st = derive_stereo_coeffs(
+                is_q[:, :, 1], st_flags, sfr_bands.reshape(B, G, 61),
+                blockcfg_[:, :, 1], rate_idx,
+            )
+            x = _apply_stereo_coeffs(x, st)
+    with span("mp3.imdct", dev):
+        return _hybrid_subbands(x, win_idx, aa_bound)
 
 
 def wire_lane_args(start_bit, end_rel, limit_rel, big_values, region1,
@@ -704,5 +714,10 @@ def decode_buckets(main_u8, lane_args, perm, buckets):
 
 def mp3_decode_fused(*args, **kwargs) -> torch.Tensor:
     """Raw main_data + lane metadata → f32 flat interleaved PCM
-    ``[B, G*576*C]``; arguments as ``fused_subband_samples``."""
-    return polyphase_synthesis(fused_subband_samples(*args, **kwargs))
+    ``[B, G*576*C]``; arguments as ``fused_subband_samples``.  Spans, each
+    timed on the device under a profiler: ``mp3.entropy`` (K1),
+    ``mp3.requantize``, ``mp3.stereo``, ``mp3.imdct`` and ``mp3.synth``
+    (K2)."""
+    ts = fused_subband_samples(*args, **kwargs)
+    with span("mp3.synth", ts.device):
+        return polyphase_synthesis(ts)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ...ops.bytes import peek32
+from ...utils.trace import to_device
 from . import huffman_tables as HT
 from . import tables as T
 
@@ -221,7 +222,7 @@ def device_tables(device) -> dict:
     t = _TABLES.get(device)
     if t is None:
         def put(a, dtype=torch.int32):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+            return to_device(np.asarray(a), device, dtype)
 
         t = dict(
             biglut=put(_BIGLUT.view(np.int16), torch.int16),

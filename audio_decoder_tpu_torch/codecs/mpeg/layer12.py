@@ -16,10 +16,9 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ...core import errors as E
-from ...utils.trace import TRACE
+from ...utils.trace import span, to_device
 from . import layer12_tables as LT
 from .dsp import polyphase_synthesis
 from .frontend import _Bits, find_frames
@@ -239,17 +238,16 @@ def l12_subband_samples(codes: torch.Tensor, cls: torch.Tensor,
     dev = codes.device
     f = torch.float32
     k = cls.to(torch.int64)
-    half = torch.as_tensor(_HALF_RANGE, device=dev)[k]           # [B,F,C,32]
-    cc = torch.as_tensor(_C_BY_CLASS.astype(np.float32), device=dev)[k]
-    dd = torch.as_tensor(_D_BY_CLASS.astype(np.float32), device=dev)[k]
+    half = to_device(_HALF_RANGE, dev)[k]           # [B,F,C,32]
+    cc = to_device(_C_BY_CLASS.astype(np.float32), dev)[k]
+    dd = to_device(_D_BY_CLASS.astype(np.float32), dev)[k]
     # s'' = C * (code / 2^(nb-1) - 1 + D)   (ISO 2.4.3.2 / 2.4.3.3)
     frac = codes.to(f) / half[..., None] - 1.0
     s2 = cc[..., None] * (frac + dd[..., None])
     # scalefactor per time step: Layer II parts of 12 samples, Layer I
     # part 0
-    sf_tab = torch.as_tensor(
-        np.concatenate([_SF.astype(np.float32), np.zeros(1, np.float32)]),
-        device=dev)
+    sf_tab = to_device(
+        np.concatenate([_SF.astype(np.float32), np.zeros(1, np.float32)]), dev)
     sf = sf_tab[sf_idx.to(torch.int64)]                           # [B,F,C,32,3]
     part = (torch.arange(S, device=dev) // 12 if S == 36
             else torch.zeros(S, dtype=torch.int64, device=dev))
@@ -274,7 +272,7 @@ def l12_synthesize(
     if codes.shape[2] != channels or codes.shape[4] != steps:
         raise ValueError(f"codes {tuple(codes.shape)} do not match channels "
                          f"{channels}, steps {steps}")
-    with TRACE.stage("l12/requantize"), record_function("l12.requantize"):
+    with span("l12.requantize"):
         TS = l12_subband_samples(codes, cls, sf_idx)
-    with TRACE.stage("l12/synthesis"), record_function("l12.synthesis"):
+    with span("l12.synthesis"):
         return polyphase_synthesis(TS)

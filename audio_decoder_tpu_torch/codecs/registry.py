@@ -16,18 +16,18 @@ falls back to the CPU; ``device="cuda"`` without a card raises.
 
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import errors as E
-from ..core.batch import AudioBatch, concat_batches
+from ..core.batch import AudioBatch, concat_batches, host_audio_seconds
 from ..io.assets import Asset, load_assets, pack_bytes, scan_assets
 from ..ops.unpack import (unpack_ima4, unpack_ima_adpcm, unpack_ms_adpcm,
                           unpack_pcm)
-from ..utils.trace import TRACE
+from ..utils.trace import TRACE, span, to_device, to_host
 from . import aiff as aiff_codec
 from . import au as au_codec
 from . import caf as caf_codec
@@ -76,7 +76,7 @@ def _error_batch(names, formats, codes, device) -> AudioBatch:
         num_channels=z(),
         bits_per_sample=z(),
         valid_frames=z(),
-        err=torch.as_tensor(np.asarray(codes, np.int32), device=device),
+        err=to_device(np.asarray(codes, np.int32), device),
         names=tuple(names),
         formats=tuple(formats),
     )
@@ -93,10 +93,10 @@ def decode_pcm_family(
     parse failed."""
     parse_meta, unpack_args_fn, big_endian = _PARSERS[family]
     bufs_np, lens_np = pack_bytes([a.data for a in assets])
-    bufs = torch.as_tensor(bufs_np, device=device)
-    with TRACE.stage("pcm/parse"), record_function("pcm.parse"):
-        meta = parse_meta(bufs, torch.as_tensor(lens_np, device=device))
-        meta_host = {k: v.cpu().numpy() for k, v in meta.items()}
+    bufs = to_device(bufs_np, device)
+    with span("pcm.parse"):
+        meta = parse_meta(bufs, to_device(lens_np, device))
+        meta_host = {k: to_host(v) for k, v in meta.items()}
 
     groups: dict[tuple, list[int]] = {}
     failed: list[int] = []
@@ -129,7 +129,7 @@ def decode_pcm_family(
     for (bits, channels, is_float, unsigned8, companded, be, adpcm,
          block_align), idxs in groups.items():
         sel_np = np.asarray(idxs, np.int64)
-        sel = torch.as_tensor(sel_np, device=device)
+        sel = to_device(sel_np, device)
         max_frames = _bucket_frames(int(meta_host["n_frames"][sel_np].max()))
         if adpcm is not None:
             kw = {} if adpcm == "ima4" else dict(block_align=block_align)
@@ -166,71 +166,78 @@ def decode_pcm_family(
         )
         pieces.append((idxs, batch))
 
+    ok = meta_host["err"] == E.ERR_OK
+    TRACE.add(f"decode.{family}", host_audio_seconds(
+        meta_host["n_frames"][ok], meta_host["sample_rate"][ok]))
     return pieces
+
+
+#: per-process call numbers of ``decode_assets`` (the profiler range's label)
+_CALL_IDS = itertools.count(1)
 
 
 def decode_assets(assets: Sequence[Asset], *, device="cuda") -> AudioBatch:
     """Decode a mixed list of assets into one ``AudioBatch`` (asset order)
     on ``device``.  Routing goes through the model registry
-    (models.MODELS)."""
+    (models.MODELS).  Spans: ``decode.call`` around the whole call (its
+    profiler range numbered per process), and inside it ``decode.route``,
+    ``decode.<family>`` per family and ``decode.assemble``."""
     from .. import models  # late: models binds this module's family fns
 
-    dev = resolve_device(device)
-    assets = list(assets)
-    by_family: dict[str, list[int]] = {}
-    unknown: list[int] = []
-    for i, a in enumerate(assets):
-        m = models.for_extension(a.ext)
-        if m is None:
-            unknown.append(i)  # "unsupported format" skip
-        else:
-            by_family.setdefault(m.name, []).append(i)
+    with span("decode.call", label=f"decode.call.{next(_CALL_IDS)}"):
+        with span("decode.route"):
+            dev = resolve_device(device)
+            assets = list(assets)
+            by_family: dict[str, list[int]] = {}
+            unknown: list[int] = []
+            for i, a in enumerate(assets):
+                m = models.for_extension(a.ext)
+                if m is None:
+                    unknown.append(i)  # "unsupported format" skip
+                else:
+                    by_family.setdefault(m.name, []).append(i)
 
-    pieces: list[tuple[list[int], AudioBatch]] = []
-    if unknown:
-        pieces.append(
-            (
-                unknown,
-                _error_batch(
-                    [assets[i].name for i in unknown],
-                    [assets[i].ext for i in unknown],
-                    [E.ERR_UNSUPPORTED] * len(unknown),
-                    dev,
-                ),
+            pieces: list[tuple[list[int], AudioBatch]] = []
+            if unknown:
+                pieces.append(
+                    (
+                        unknown,
+                        _error_batch(
+                            [assets[i].name for i in unknown],
+                            [assets[i].ext for i in unknown],
+                            [E.ERR_UNSUPPORTED] * len(unknown),
+                            dev,
+                        ),
+                    )
+                )
+
+        for fam, idxs in by_family.items():
+            fam_assets = [assets[i] for i in idxs]
+            # each family's decode_group adds its decoded audio-seconds
+            with span(f"decode.{fam}"):
+                fam_pieces = list(models.MODELS[fam].decode_group(fam_assets,
+                                                                  device=dev))
+            for local_idxs, batch in fam_pieces:
+                pieces.append(([idxs[j] for j in local_idxs], batch))
+
+        with span("decode.assemble"):
+            if not pieces:
+                return _error_batch([], [], [], dev)
+
+            order = np.concatenate([np.asarray(ix, np.int64) for ix, _ in pieces])
+            merged = concat_batches([b for _, b in pieces])
+            host_perm = np.argsort(order)
+            perm = to_device(host_perm, dev)
+            return AudioBatch(
+                data=merged.data[perm], channels=merged.channels,
+                sample_rate=merged.sample_rate[perm],
+                num_channels=merged.num_channels[perm],
+                bits_per_sample=merged.bits_per_sample[perm],
+                valid_frames=merged.valid_frames[perm],
+                err=merged.err[perm],
+                names=tuple(merged.names[i] for i in host_perm),
+                formats=tuple(merged.formats[i] for i in host_perm),
             )
-        )
-
-    for fam, idxs in by_family.items():
-        fam_assets = [assets[i] for i in idxs]
-        with TRACE.stage(f"decode/{fam}"):
-            fam_pieces = list(models.MODELS[fam].decode_group(fam_assets,
-                                                              device=dev))
-        for local_idxs, batch in fam_pieces:
-            # decoded audio-seconds counter
-            rate = np.maximum(batch.sample_rate.cpu().numpy(), 1)
-            TRACE.add(
-                f"decode/{fam}",
-                float((batch.valid_frames.cpu().numpy() / rate).sum()),
-            )
-            pieces.append(([idxs[j] for j in local_idxs], batch))
-
-    if not pieces:
-        return _error_batch([], [], [], dev)
-
-    order = np.concatenate([np.asarray(ix, np.int64) for ix, _ in pieces])
-    merged = concat_batches([b for _, b in pieces])
-    host_perm = np.argsort(order)
-    perm = torch.as_tensor(host_perm, device=dev)
-    return AudioBatch(
-        data=merged.data[perm], channels=merged.channels,
-        sample_rate=merged.sample_rate[perm],
-        num_channels=merged.num_channels[perm],
-        bits_per_sample=merged.bits_per_sample[perm],
-        valid_frames=merged.valid_frames[perm],
-        err=merged.err[perm],
-        names=tuple(merged.names[i] for i in host_perm),
-        formats=tuple(merged.formats[i] for i in host_perm),
-    )
 
 
 def decode_paths(paths: Sequence[str], *, device="cuda") -> AudioBatch:

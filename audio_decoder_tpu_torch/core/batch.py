@@ -123,6 +123,13 @@ def expand_flat(data: torch.Tensor, channels: int, smax: int,
                                                               device=data.device))
 
 
+def host_audio_seconds(valid_frames, sample_rate) -> float:
+    """Decoded audio-seconds of host metadata arrays: the sum of
+    ``valid_frames / sample_rate``, a rate of 0 read as 1."""
+    rate = np.maximum(np.asarray(sample_rate), 1)
+    return float((np.asarray(valid_frames) / rate).sum())
+
+
 def concat_batches(batches: Sequence[AudioBatch]) -> AudioBatch:
     """Concatenate decode-group results back into one batch (host order)."""
     smax = max(b.max_frames for b in batches)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import build
+from ..utils.trace import to_device, to_host
 
 #: number of times the CUDA kernel was launched in this process
 launches = 0
@@ -98,7 +99,7 @@ def _folded(n_mat: torch.Tensor) -> torch.Tensor:
     hit = _FOLDED.get(id(n_mat))
     if hit is not None and hit[0]() is n_mat and hit[1] == n_mat._version:
         return hit[2]
-    nf = torch.as_tensor(fold_synth_n(n_mat.cpu().numpy()), device=n_mat.device)
+    nf = to_device(fold_synth_n(to_host(n_mat)), n_mat.device)
     key = id(n_mat)
     _FOLDED[key] = (weakref.ref(n_mat, lambda _r: _FOLDED.pop(key, None)),
                     n_mat._version, nf)

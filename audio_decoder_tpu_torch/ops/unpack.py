@@ -20,9 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from ..utils.trace import TRACE
+from ..utils.trace import span, to_device
 
 
 def _g711_tables():
@@ -79,8 +78,7 @@ def unpack_pcm(
     if companded is not None:
         if bits != 8:
             raise ValueError("companded PCM must be 8-bit")
-        lut = torch.as_tensor(_ALAW_F32 if companded == "alaw" else _ULAW_F32,
-                              device=dev)
+        lut = to_device(_ALAW_F32 if companded == "alaw" else _ULAW_F32, dev)
         val = lut[byte(0)]
     elif is_float:
         if bits not in (32, 64):
@@ -211,13 +209,13 @@ def _ima_scan(pred0: torch.Tensor, idx0: torch.Tensor,
     Per step: the predictor moves by its table change and clamps to
     int16; the step index follows its table (0..88)."""
     dev = nib.device
-    delta_tab = torch.as_tensor(_IMA_DELTA, device=dev)
-    next_tab = torch.as_tensor(_IMA_NEXT16, device=dev)
+    delta_tab = to_device(_IMA_DELTA, dev)
+    next_tab = to_device(_IMA_NEXT16, dev)
     out = torch.empty(nib.shape, dtype=torch.int32, device=dev)
     pred = pred0.to(torch.int32)
     k16 = idx0.to(torch.int64) * 16
     nib = nib.to(torch.int64)
-    with TRACE.stage("adpcm/scan"), record_function("adpcm.scan"):
+    with span("adpcm.scan"):
         for s in range(nib.shape[0]):
             k = k16 + nib[s]
             torch.add(pred, delta_tab[k], out=out[s])
@@ -355,14 +353,14 @@ def unpack_ms_adpcm(
     nib = nib.reshape(B, K, S, C).permute(0, 1, 3, 2).reshape(B * K * C, S)
     nib = nib.t().to(torch.int64)                            # [S, lanes]
     signed = (nib - ((nib & 8) << 1)).to(torch.int32)
-    adapt = torch.as_tensor(_MS_ADAPT, device=dev)[nib]
+    adapt = to_device(_MS_ADAPT, dev)[nib]
 
-    coef1 = torch.as_tensor(_MS_COEF1, device=dev)[cidx]
-    coef2 = torch.as_tensor(_MS_COEF2, device=dev)[cidx]
+    coef1 = to_device(_MS_COEF1, dev)[cidx]
+    coef2 = to_device(_MS_COEF2, dev)[cidx]
     s1, s2 = samp1.reshape(-1), samp2.reshape(-1)
     delta = idelta0.reshape(-1)
     out = torch.empty((S, s1.shape[0]), dtype=torch.int32, device=dev)
-    with TRACE.stage("adpcm/scan"), record_function("adpcm.scan"):
+    with span("adpcm.scan"):
         for s in range(S):
             lin = torch.div(s1 * coef1 + s2 * coef2, 256, rounding_mode="trunc")
             torch.add(lin, signed[s] * delta, out=out[s])

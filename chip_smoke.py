@@ -1035,8 +1035,8 @@ KINDS = {
     "layer2": ("mp2", N_L12, "mp2"),
 }
 #: TRACE stages of the families' decode, host milliseconds each
-STAGES = ("pcm/parse", "adpcm/scan", "l12/analyze", "l12/requantize",
-          "l12/synthesis")
+STAGES = ("pcm.parse", "adpcm.scan", "l12.analyze", "l12.requantize",
+          "l12.synthesis")
 
 
 def family_sources(seed: int) -> dict:
@@ -2953,7 +2953,7 @@ def phase_mp3_hosthuff(dev, card: str) -> tuple[dict, dict]:
     for fn in fns.values():  # warm
         fn()
     torch.cuda.synchronize()
-    analyze = TRACE.stats["mp3/hosthuff_analyze"]
+    analyze = TRACE.stats["mp3.hosthuff_analyze"]
     calls0, secs0 = analyze.calls, analyze.seconds
     for _ in range(3):  # in turns: host, device, device, host
         for name in (*fns, *reversed(list(fns))):
