@@ -6,7 +6,9 @@ interleaved ``[B, smax * channels]`` float32 PCM on the tensors' device:
 1. **Rice lane scan** — each lane is one rice-coded partition; a step
    decodes ``rice_k(narrow)`` codes per lane: unary quotient =
    count-leading-zeros of the 32-bit window at the cursor, remainder = a
-   shift of the same window (narrow) or one more window read (wide).
+   shift of the same window (narrow) or one more window read (wide).  On
+   the card one launch of csrc/flac_rice.cu (ops/rice_scan) decodes every
+   lane; on the CPU the plain twin ``_rice_scan`` loops over the steps.
 2. **Fixed-width lanes** — warmup samples, VERBATIM bodies, CONSTANT
    values and escaped partitions: value i sits at ``bitpos + i*width``.
 3. **Value assembly** — the rice and fixed-width lanes land in one flat
@@ -39,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.bytes import peek32
+from ...ops.rice_scan import rice_scan_cuda
 from ...ops.window_add import window_add, window_add2
 from ...utils.trace import span
 from .frontend import Q_CAP  # max in-lane unary quotient
@@ -212,7 +215,6 @@ def _lane_windows(bytes_u8, limit, rl_file, rl_bitpos, rl_count, rl_param,
     lands at a contiguous per-lane window (dest = lane base + i), in stream
     order == destination order, the window-add kernels' contract."""
     dev = bytes_u8.device
-    W = rice_steps * rice_k(rice_narrow)
     with span("flac.fixed_width"):
         fwv = _fixed_width(bytes_u8, fw_bitpos, fw_width,
                            limit[fw_file.long()], fw_imax)
@@ -220,13 +222,31 @@ def _lane_windows(bytes_u8, limit, rl_file, rl_bitpos, rl_count, rl_param,
                   < fw_count[:, None])
         fw_starts = (fw_sub * (nmax + 1) + fw_dest).to(torch.int32)
         fw_upd = torch.where(fvalid, fwv, 0)
-    with span("flac.rice_scan"):
-        rv, ovf_l = _rice_scan(bytes_u8, rl_bitpos, rl_count, rl_param,
-                               limit[rl_file.long()], rice_steps, rice_narrow)
-        rvalid = torch.arange(W, device=dev)[None, :] < rl_count[:, None]
+    with span("flac.rice_scan", device=dev):
+        rl_upd, ovf_l = _rice_lanes(bytes_u8, rl_bitpos, rl_count, rl_param,
+                                    limit[rl_file.long()], rice_steps,
+                                    rice_narrow)
         rl_starts = (rl_sub * (nmax + 1) + rl_dest).to(torch.int32)
-        rl_upd = torch.where(rvalid, rv, 0)
     return rl_starts, rl_upd, fw_starts, fw_upd, ovf_l
+
+
+def _rice_lanes(stream, bitpos, count, param, limit, steps: int,
+                narrow: bool):
+    """The rice lanes' value windows, zero at and past each lane's
+    ``count`` (i32 ``[L, steps*K]``), and their overflow (bool ``[L]``):
+    for CUDA tensors one launch of csrc/flac_rice.cu
+    (ops/rice_scan.rice_scan_cuda), for CPU tensors the plain twin
+    ``_rice_scan`` and the mask; any other device raises."""
+    dev = stream.device
+    if dev.type == "cuda":
+        return rice_scan_cuda(stream, bitpos, count, param, limit, steps,
+                              narrow, rice_k(narrow), Q_CAP)
+    if dev.type != "cpu":
+        raise ValueError(f"rice_scan: unsupported device {dev}")
+    rv, ovf = _rice_scan(stream, bitpos, count, param, limit, steps, narrow)
+    valid = (torch.arange(rv.shape[1], device=dev)[None, :]
+             < count[:, None])
+    return torch.where(valid, rv, 0), ovf
 
 
 def _direct_values(vals_flat, dv_sub, dv_dest, dv_val, nmax: int):

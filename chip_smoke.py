@@ -6,14 +6,17 @@ through ``decode_dir`` and checks its output, then times the paths.
 Phases:
 
   1. environment: torch, CUDA, nvcc and the card (fails without CUDA);
-  2. build, all libraries at once: the entropy-scan, synthesis and
-     window-add kernels (K3's window_add.cu, K4's window_add2.cu; nvcc,
-     sm_90a) and the host MP3 and FLAC front-ends (g++);
+  2. build, all libraries at once: the entropy-scan, synthesis,
+     window-add (K3's window_add.cu, K4's window_add2.cu) and FLAC rice
+     scan (flac_rice.cu) kernels (nvcc, sm_90a) and the host MP3 and FLAC
+     front-ends (g++);
   3. kernels against their plain twins on the card: the entropy scan (K1)
      must match exactly, the synthesis (K2) within atol 1e-4 / rtol 1e-5
      (the sums run in another order), at the WAV + MP3 path's shapes; the
-     window-add kernels K4 (FLAC values) and K3 (FLAC PCM) exactly, at the
-     16-file FLAC group's shapes (K3 also at the 24-bit mono group's).  Each is timed with CUDA events beside
+     window-add kernels K4 (FLAC values) and K3 (FLAC PCM) and the rice
+     scan R1 (FLAC residuals: against the plain ``_rice_scan`` and the
+     decode's mask) exactly, at the 16-file FLAC group's shapes (K3 also
+     at the 24-bit mono group's).  Each is timed with CUDA events beside
      its twin, its bound (bytes or operations at the card's peak) and,
      for K3/K4, one ``index_add_`` call, all in milliseconds per launch
      (K1 runs one launch per bucket of the group; the phase prints the
@@ -32,13 +35,13 @@ Phases:
      bytes behind the fLaC marker) + a truncated copy, decoded with
      ``decode_dir(folder, device="cuda")``; checks error codes against the
      port's CPU path, every good file's PCM equal to the CPU path bit for
-     bit and its integers against the STREAMINFO MD5, and that K3 and K4
-     launched;
+     bit and its integers against the STREAMINFO MD5, and that K3, K4
+     and R1 launched, R1 once per FLAC group as K4;
   6. the frame-chunked FLAC route: the music fixture with the port's
      ``frontend.BIT_CAP`` shrunk to the file's size, so it decodes in
-     chunks of a few frames, K3 and K4 once per chunk, on the card and on
-     the CPU; checks the two bit for bit, the STREAMINFO MD5, and that K3
-     launched once per chunk;
+     chunks of a few frames, K3, K4 and R1 once per chunk, on the card and
+     on the CPU; checks the two bit for bit, the STREAMINFO MD5, and that
+     K3 launched once per chunk, K4 and R1 as often;
   7. rates: after one warm run, 3 timed runs of ``decode_assets`` on each
      of the WAV + MP3 folder, 16 FLAC files, and 16 WAV + 16 MP3 + 16 FLAC
      (decoded audio-seconds per second; informational); then the port's
@@ -46,8 +49,8 @@ Phases:
      process at bench.py's sizes (16 WAV + 16 MP3 + 16 FLAC of 10 s,
      ``BENCH_MEASURE_S`` 5) with its own gates: its JSON line is printed
      here and every key (the headline and the six extras) must be there
-     and above 0; its launches are counted alone and K1-K4 must each have
-     launched;
+     and above 0; its launches are counted alone and K1-K4 and R1 must
+     each have launched;
   8. the other families: 16 copies each of 10 s 44.1 kHz stereo AIFF
      24-bit, AIFF-C sowt 16-bit, AU µ-law, CAF f32 LE, WAV IMA ADPCM and
      WAV MS ADPCM (block_align 2048) and AIFF-C ima4, 8 copies each of a
@@ -73,8 +76,8 @@ Phases:
      chunk, chunk count and peak device memory against the one-shot
      decode's; counts each stream run's launches on its own (set to 0
      just before it, read just after) and checks them: K1 and K2 once per
-     Layer III chunk, K2 once per Layer I/II chunk, K3 and K4 once per
-     FLAC chunk, nothing for the PCM streams; holds K1, K2, K3 and K4
+     Layer III chunk, K2 once per Layer I/II chunk, K3, K4 and R1 once per
+     FLAC chunk, nothing for the PCM streams; holds K1, K2, K3, K4 and R1
      against their twins at the streams' chunk shapes and times them;
  10. the batch DSP: ``consensus_for`` on the mixed folder's batch (card =
      CPU); ``resample_to_consensus`` of 16 × 10 s stereo tones at each of
@@ -86,11 +89,12 @@ Phases:
      WAV and 16 MP3 and the LSF MP3, 4 copies of the FLAC fixture and 2
      Layer II files (~135 MB of f32 tracks), rendered by ``cli render
      --resample`` (the live loop at PERIOD 128, SPEC_DEPTH 8) from a
-     seeded script that uses every verb; K1-K4's launches in its decode
-     are counted alone and must be exactly the folder's groups' (K1 and K2
-     as the main path's MP3 files, one more K2 for the Layer II group, one
-     K4 and one K3 for the FLAC group); each of those calls' inputs is kept
-     and K1-K4 are held against their twins on them (K1, K3, K4 exactly,
+     seeded script that uses every verb; K1-K4's and R1's launches in its
+     decode are counted alone and must be exactly the folder's groups' (K1
+     and K2 as the main path's MP3 files, one more K2 for the Layer II
+     group, one R1, one K4 and one K3 for the FLAC group); each of those
+     calls' inputs is kept and K1-K4 and R1 are held against their twins
+     on them (K1, K3, K4, R1 exactly,
      K2 within atol 1e-4 / rtol 1e-5) and timed; the written WAV must equal
      the captured int16 blocks, and the same script with ``--platform
      cpu`` must agree within 1 LSB (the share that differs is printed);
@@ -114,10 +118,11 @@ Phases:
      same inputs (WAV and FLAC bit for bit, FLAC also against every file's
      MD5; MP3 and Layer II bit for bit or else within amplitude-scaled RMS
      5e-7, the max abs difference printed), each run's launches counted
-     alone (K1 and K2 once per data shard; in the FLAC decode K5 three
-     times, its kernel once per card each, K3 and K4 never), each K1 and
-     K2 call's and each K5 kernel launch's inputs kept and the kernel held
-     against its twin on them (K1 and K5 exactly, K2 within atol 1e-4 /
+     alone (K1 and K2 once per data shard; in the FLAC decode R1 once per
+     data shard, K5 three times, its kernel once per card each, K3 and K4
+     never), each K1, K2 and R1 call's and each K5 kernel launch's inputs
+     kept and the kernel held against its twin on them (K1, R1 and K5
+     exactly, K2 within atol 1e-4 /
      rtol 1e-5) and timed, and the wall of a second run beside the single
      card's; bench.py's render over ``model`` (two chains of 64 blocks
      bit-identical, each block within 2e-6 of the single-card render,
@@ -133,8 +138,8 @@ Phases:
      --platform cuda --container flac`` of the WAV + MP3 folder (its decode's
      launches counted alone and equal to the main path's) must print "33
      written, 2 skipped"; the written folder, decoded with
-     ``decode_dir(device="cuda")`` (counted alone: K4 and K3 exactly once per
-     FLAC group), gives every file its source's quantization
+     ``decode_dir(device="cuda")`` (counted alone: R1, K4 and K3 exactly once
+     per FLAC group), gives every file its source's quantization
      ``round(clip(pcm · 2^15))`` bit for bit (the WAV sources' integers) and
      passes its STREAMINFO MD5; on each file's PCM the encoder's pass A on
      the card against the CPU (ints, cands, is_const exact; fixed_order exact
@@ -148,8 +153,8 @@ Phases:
      and encode audio-s/s printed); pass A with dither 7 on the card equal
      to the CPU's; one 10 s file's pass A and pass B device ms, planner and
      packer host ms and peak device memory at levels 5 and 8.  Every K1-K4
-     call of the export, the decode back and the transcodes is held against
-     its twin on its inputs and timed;
+     and R1 call of the export, the decode back and the transcodes is held
+     against its twin on its inputs and timed;
  15. the host-Huffman MP3 route (``decode_group_hosthuff``: mp3fe's C++
      analysis, Huffman included, on the host, then the DSP tail on the
      card) on the 16 copies of the committed stereo MP3 fixture that the
@@ -369,14 +374,15 @@ def phase_build() -> None:
     """Build every library at once, one compiler process each."""
     from audio_decoder_tpu_torch.codecs.flac import native as flac_native
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel, native
-    from audio_decoder_tpu_torch.ops import synth_kernel, window_add
+    from audio_decoder_tpu_torch.ops import rice_scan, synth_kernel, window_add
     from audio_decoder_tpu_torch.runtime import native as runtime_native
     from audio_decoder_tpu_torch.utils import build
 
     t0 = time.perf_counter()
     loaders = (huffman_kernel.load_library, synth_kernel.load_library,
-               window_add.load_library, window_add.load_library2, native._load,
-               flac_native._load, runtime_native.load_library)
+               window_add.load_library, window_add.load_library2,
+               rice_scan.load_library, native._load, flac_native._load,
+               runtime_native.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(fn) for fn in loaders]:
             f.result()  # a BuildError carries the compiler's output
@@ -618,10 +624,62 @@ def _index_add_call(sets, n_out: int):
                                device=upd.device).index_add_(0, idx, upd)
 
 
+def _rice_timed(label: str, args, plain_reps: int = 2) -> dict:
+    """R1 (``rice_scan_cuda``) on ``args``, the inputs one decode gave it,
+    against the plain twin ``_rice_scan`` followed by the decode's mask
+    (``rice_plain`` of tests/test_torch_cuda.py) on the card, values and
+    overflow bit for bit; timed beside the twin, with its bytes bound (the
+    stream, the lane arrays and the outputs, each moved once)."""
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from audio_decoder_tpu_torch.ops import rice_scan as RS
+
+    stream, bitpos, count, param, limit, steps, narrow, k, q_cap = args
+    if k != FV.rice_k(narrow):
+        fail(f"R1 at the {label}: {k} codes per step for the "
+             f"{'narrow' if narrow else 'wide'} variant")
+
+    def kernel():
+        return RS.rice_scan_cuda(*args)
+
+    def plain():
+        rv, ovf = FV._rice_scan(stream, bitpos, count, param, limit, steps,
+                                narrow)
+        live = (torch.arange(rv.shape[1], device=rv.device)[None, :]
+                < count[:, None])
+        return torch.where(live, rv, 0), ovf
+
+    (got, got_o), (ref, ref_o) = kernel(), plain()
+    torch.cuda.synchronize()
+    if got.dtype != ref.dtype or got.shape != ref.shape \
+            or not torch.equal(got, ref) or not torch.equal(got_o, ref_o):
+        bad = (int((got != ref).sum()) if got.shape == ref.shape
+               else f"shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+        fail(f"R1 at the {label} differs from the plain twin and its mask: "
+             f"values {bad}, overflow "
+             f"{int((got_o != ref_o).sum()) if got_o.shape == ref_o.shape else '?'}")
+    ms = cuda_ms(kernel, 50)
+    plain_ms = cuda_ms(plain, plain_reps)
+    b_ms, by = bound(nbytes(stream, bitpos, count, param, limit, got, got_o))
+    live = int(count.sum())
+    log(f"R1 at the {label}: {got.shape[0]} lanes x {got.shape[1]} codes "
+        f"({'narrow' if narrow else 'wide'}, {live} live codes, longest lane "
+        f"{int(count.max()) if count.numel() else 0}, {int(got_o.sum())} "
+        f"overflowing lanes), stream {stream.numel()} B: exact; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return dict(shape=[list(got.shape), stream.numel()], max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=None)
+
+
 def phase_flac_kernels(dev) -> list[dict]:
     from audio_decoder_tpu_torch.ops import window_add as PW
 
-    w = _flac_windows(dev)
+    with _captured_kernel_inputs() as seen:
+        w = _flac_windows(dev)
+    calls = seen.get("flac_rice", [])
+    if len(calls) != 1:
+        fail(f"the 16-file FLAC group's windows called R1 {len(calls)} times")
+    r1 = _rice_timed("16-file FLAC group", calls[0][0], plain_reps=3)
     out = []
     for name, tag, fn, plain, replaces, source in (
             ("window_add2", "K4", PW.window_add2, PW.window_add2_plain,
@@ -685,6 +743,13 @@ def phase_flac_kernels(dev) -> list[dict]:
     log(f"K3 window_add at the 24-bit mono group: exact (starts "
         f"{tuple(starts.shape)} upd {tuple(upd.shape)}; "
         f"{int((starts % 4 != 0).sum())} starts not multiples of 4)")
+    # R1 has no Pallas counterpart: it replaces the JAX package's lax.scan
+    out.append(dict(
+        name="flac_rice", route="cuda",
+        source="audio_decoder_tpu_torch/csrc/flac_rice.cu",
+        replaces="audio_decoder_tpu/codecs/flac/device.py:107", launches=0,
+        **{k: r1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}))
     return out
 
 
@@ -788,19 +853,26 @@ def write_flac_folder(folder: str, seed: int) -> dict:
     return good
 
 
+def _flac_counts() -> dict:
+    """{kernel: launches} of the FLAC kernels (K3-K5 and R1) alone."""
+    return {k: n for k, n in _kernel_counts().items()
+            if k not in ("mp3_entropy_scan", "mp3_polyphase_synthesis")}
+
+
 def phase_flac_path(folder: str, good: dict, dev) -> dict:
     import audio_decoder_tpu_torch as adt
-    from audio_decoder_tpu_torch.ops import window_add as PW
 
-    for k in PW.launches:
-        PW.launches[k] = 0
+    _zero_kernel_counts()
     batch, names = adt.decode_dir(folder, device=dev)
     torch.cuda.synchronize()
-    launches = dict(PW.launches)
+    launches = _flac_counts()
     log(f"FLAC path launches: {launches}")
-    for k in ("window_add", "window_add2"):
+    for k in ("window_add", "window_add2", "flac_rice"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the FLAC path")
+    if launches["flac_rice"] != launches["window_add2"]:
+        fail(f"the FLAC path launched R1 {launches['flac_rice']} times and K4 "
+             f"{launches['window_add2']}: R1 runs once per group")
     if batch.data.device.type != dev.type or not torch.isfinite(batch.data).all():
         fail(f"FLAC batch is not finite PCM on {dev}")
 
@@ -855,18 +927,16 @@ def phase_flac_chunked(dev) -> dict:
     ``frontend.BIT_CAP`` decodes chunk by chunk, on the card and on the CPU."""
     import audio_decoder_tpu_torch as adt
     from audio_decoder_tpu_torch.codecs.flac import frontend
-    from audio_decoder_tpu_torch.ops import window_add as PW
 
     cap = frontend.BIT_CAP
     frontend.BIT_CAP = 8 * os.path.getsize(MUSIC_FLAC)  # the file is past it
     try:
-        for k in PW.launches:
-            PW.launches[k] = 0
+        _zero_kernel_counts()
         t0 = time.perf_counter()
         gpu = adt.decode_paths([MUSIC_FLAC], device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(PW.launches)
+        launches = _flac_counts()
         cpu = adt.decode_paths([MUSIC_FLAC], device="cpu")
     finally:
         frontend.BIT_CAP = cap
@@ -874,6 +944,10 @@ def phase_flac_chunked(dev) -> dict:
     if launches["window_add"] < 2:
         fail(f"the chunked route launched K3 {launches['window_add']} times: "
              "the file did not decode in chunks")
+    if not launches["flac_rice"] == launches["window_add2"] \
+            == launches["window_add"]:
+        fail(f"the chunked route launched {launches}: K3, K4 and R1 run once "
+             "per chunk")
     if int(gpu.err[0]) != 0 or int(cpu.err[0]) != 0:
         fail(f"chunked route error codes {int(gpu.err[0])} (card), "
              f"{int(cpu.err[0])} (CPU)")
@@ -935,7 +1009,7 @@ def phase_bench(card: str) -> dict:
     process on the card at bench.py's sizes (16 WAV + 16 MP3 + 16 FLAC of
     10 s), its gates included; its line printed here, each key checked.
     Every launch count is set to 0 just before it and read just after:
-    K1-K4 must each have launched."""
+    K1-K4 and R1 must each have launched."""
     from audio_decoder_tpu_torch import bench
 
     saved = {k: os.environ.get(k) for k in (*BENCH_ENV, "BENCH_SKIP_EXTRAS")}
@@ -961,7 +1035,7 @@ def phase_bench(card: str) -> dict:
     if bad or result.get("metric") != "decode_throughput_mixed":
         fail(f"the bench's line lacks {bad or 'its metric'}: {result}")
     for k in ("mp3_entropy_scan", "mp3_polyphase_synthesis", "window_add",
-              "window_add2"):
+              "window_add2", "flac_rice"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the bench")
     return launches
@@ -1353,13 +1427,14 @@ STREAM_KERNELS = {
     "mp3": ("mp3_entropy_scan", "mp3_polyphase_synthesis"),
     "layer1": ("mp3_polyphase_synthesis",),
     "layer2": ("mp3_polyphase_synthesis",),
-    "flac": ("window_add", "window_add2"),
+    "flac": ("window_add", "window_add2", "flac_rice"),
 }
 
 
 def _zero_kernel_counts() -> None:
     """Set every kernel's launch count to 0."""
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import rice_scan as RS
     from audio_decoder_tpu_torch.ops import synth_kernel as SK
     from audio_decoder_tpu_torch.ops import window_add as PW
 
@@ -1367,16 +1442,18 @@ def _zero_kernel_counts() -> None:
     SK.launches = 0
     for k in PW.launches:
         PW.launches[k] = 0
+    RS.launches["flac_rice"] = 0
 
 
 def _kernel_counts() -> dict:
     """{kernel: launches since the counts were last set to 0}."""
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import rice_scan as RS
     from audio_decoder_tpu_torch.ops import synth_kernel as SK
     from audio_decoder_tpu_torch.ops import window_add as PW
 
     return {"mp3_entropy_scan": HK.launches, "mp3_polyphase_synthesis": SK.launches,
-            **PW.launches}
+            **PW.launches, **RS.launches}
 
 
 def _counted_stream(kind: str, path: str, dev, start_sample: int = 0):
@@ -1538,10 +1615,11 @@ def _window_timed(label: str, name: str, arrays, n_out: int) -> dict:
 
 
 def phase_stream_kernels(paths: dict, dev) -> tuple[list, list, dict]:
-    """K1, K2, K3 and K4 against their twins at the streams' chunk shapes:
-    a middle chunk of the 180 s MP3 (one K1 launch over (512 + 2)·2 lanes,
-    K2 over 514·18 steps), the first chunk of the Layer I and II streams
-    (K2), and the first chunk of the FLAC stream (K4, then K3)."""
+    """K1, K2, K3, K4 and R1 against their twins at the streams' chunk
+    shapes: a middle chunk of the 180 s MP3 (one K1 launch over (512 + 2)·2
+    lanes, K2 over 514·18 steps), the first chunk of the Layer I and II
+    streams (K2), and the first chunk of the FLAC stream (R1, K4, then
+    K3)."""
     from audio_decoder_tpu_torch.codecs.flac import decoder as FD
     from audio_decoder_tpu_torch.codecs.flac import device as FV
     from audio_decoder_tpu_torch.codecs.flac.stream import FlacStream
@@ -1574,10 +1652,13 @@ def phase_stream_kernels(paths: dict, dev) -> tuple[list, list, dict]:
                             TS.reshape(B * C, T, 32).contiguous(), c))
     fs = FlacStream(open(paths["flac"], "rb").read(), device=dev)
     wargs, statics = FD.pack_wire(fs._slices[:1], dev, fs._sizing)
-    w = FV.flac_decode_wire(*wargs, stage="windows", **statics)
+    with _captured_kernel_inputs() as seen:
+        w = FV.flac_decode_wire(*wargs, stage="windows", **statics)
     k34 = {name: [_window_timed("FlacStream chunk", name, w[name][:-1],
                                 w[name][-1])]
            for name in ("window_add2", "window_add")}
+    k34["flac_rice"] = [_rice_timed("FlacStream chunk", a)
+                        for a, _kw in seen["flac_rice"]]
     return k1, k2, k34
 
 
@@ -1811,10 +1892,10 @@ def _copied(a):
 
 @contextlib.contextmanager
 def _captured_kernel_inputs():
-    """Inside the block every call of a K1-K5 wrapper first keeps a copy of
-    its inputs: yields {kernel: [(args, kwargs), ...]}.  K1 and K2 are
-    looked up in their modules at each call, K3 and K4 where the FLAC
-    device program bound them, and K5 at its per-card launch
+    """Inside the block every call of a K1-K5 or R1 wrapper first keeps a
+    copy of its inputs: yields {kernel: [(args, kwargs), ...]}.  K1 and K2
+    are looked up in their modules at each call, K3, K4 and R1 where the
+    FLAC device program bound them, and K5 at its per-card launch
     (``window_add._window_add_spmd_cuda``: the card's lane sets and
     n_out); the wrappers are restored after."""
     from audio_decoder_tpu_torch.codecs.flac import device as FV
@@ -1827,6 +1908,7 @@ def _captured_kernel_inputs():
              (SK, "polyphase_synthesis_blocks", "mp3_polyphase_synthesis"),
              (FV, "window_add2", "window_add2"),
              (FV, "window_add", "window_add"),
+             (FV, "rice_scan_cuda", "flac_rice"),
              (PW, "_window_add_spmd_cuda", "window_add_spmd")]
     saved = [getattr(mod, attr) for mod, attr, _ in slots]
 
@@ -1846,11 +1928,11 @@ def _captured_kernel_inputs():
 
 
 def captured_kernels(seen: dict, where: str) -> dict:
-    """K1-K5 against their twins on the very inputs a run gave them
+    """K1-K5 and R1 against their twins on the very inputs a run gave them
     (``_captured_kernel_inputs``), each call timed beside its twin on its
     inputs' card: K1 per bucket exactly, K2 per group within atol 1e-4 /
-    rtol 1e-5, K4, K3 and K5 (per card) exactly.  Returns {kernel: [shape
-    entries]}."""
+    rtol 1e-5, R1, K4, K3 and K5 (per card) exactly.  Returns {kernel:
+    [shape entries]}."""
     out: dict = {}
 
     def on_card(key, args, timed, *rest):
@@ -1864,6 +1946,8 @@ def captured_kernels(seen: dict, where: str) -> dict:
         ts, n_mat, g2 = args
         on_card("mp3_polyphase_synthesis", args, _k2_timed,
                 f"{where}'s K2 call {i}", ts, {"synth_n": n_mat, "g2": g2})
+    for i, (args, _kw) in enumerate(seen.get("flac_rice", [])):
+        on_card("flac_rice", args, _rice_timed, f"{where}'s R1 call {i}", args)
     for name in ("window_add2", "window_add"):
         for i, (args, _kw) in enumerate(seen.get(name, [])):
             on_card(name, args, _window_timed, f"{where}'s call {i}", name,
@@ -1939,7 +2023,7 @@ def _k5_call_timed(label: str, sets, n_out: int) -> dict:
 def phase_engine_cli(folder: str, work: str, names: list, card: str,
                      seed: int, main_launches: dict) -> tuple[dict, dict]:
     """``python -m audio_decoder_tpu_torch.cli render --resample`` over the
-    engine folder on the card (K1-K4 run in its decode; their launches are
+    engine folder on the card (K1-K4 and R1 run in its decode; their launches are
     counted alone and must be the folder's groups' exactly, and each call's
     inputs are kept and the kernels held against their twins on them), the
     written WAV against the captured int16 blocks, then the same script
@@ -1962,12 +2046,12 @@ def phase_engine_cli(folder: str, work: str, names: list, card: str,
         f"{args.pcm.shape[0] / RATE:.3f} s of audio)  [{card}]")
     # the folder's MP3 files are the main path's own (the stereo group's
     # buckets and the LSF group), its 2 Layer II files one more K2 group,
-    # its 4 FLAC copies one group for K4 and K3
+    # its 4 FLAC copies one group for R1, K4 and K3
     want = {"mp3_entropy_scan": main_launches["mp3_entropy_scan"],
             "mp3_polyphase_synthesis":
                 main_launches["mp3_polyphase_synthesis"] + 1,
             "window_add2": 1, "window_add": 1, "window_add_spmd": 0,
-            "window_add_spmd_kernel": 0}
+            "window_add_spmd_kernel": 0, "flac_rice": 1}
     calls = {k: len(seen.get(k, [])) for k in want}
     if launches != want or calls != want:
         fail(f"the engine's decode launched {launches} in {calls} wrapper "
@@ -2262,7 +2346,7 @@ def _mesh_refs(inp: dict, dev) -> dict:
 
 def _counted_kernels(fn, patches=()):
     """``fn()`` with every launch count set to 0 just before it and read
-    just after, each K1-K5 call's inputs kept; ``patches`` are (module,
+    just after, each K1-K5 and R1 call's inputs kept; ``patches`` are (module,
     attribute, wrapper) set for the run only.  Returns (result, {kernel:
     launches}, {kernel: [(args, kwargs)]}, wall seconds)."""
     saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
@@ -2284,7 +2368,7 @@ def _counted_kernels(fn, patches=()):
 
 def _counted_run(fn):
     """``fn()`` with every launch count set to 0 just before it and read
-    just after, each K1-K4 call's inputs kept (``_captured_kernel_inputs``);
+    just after, each K1-K5 and R1 call's inputs kept (``_captured_kernel_inputs``);
     then ``fn()`` once more, timed alone: (the first run's result,
     {kernel: launches}, {kernel: [(args, kwargs)]}, the second's wall
     seconds)."""
@@ -2316,8 +2400,8 @@ def _close_or_equal(label: str, ref: torch.Tensor, got: torch.Tensor) -> str:
 def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
                   label: str) -> tuple[dict, dict]:
     """Every sharded decode on ``mesh``, each counted alone and held against
-    the single-card result, and every K1, K2 and K5 call of the MP3, Layer
-    II and FLAC runs held against its twin on that call's inputs
+    the single-card result, and every K1, K2, R1 and K5 call of the MP3,
+    Layer II and FLAC runs held against its twin on that call's inputs
     (``captured_kernels``); returns ({path: {kernel: launches}}, {kernel:
     [shape entries]})."""
     from audio_decoder_tpu_torch import parallel as P
@@ -2389,10 +2473,11 @@ def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
         ints = np.round(got[i, :a.total * 2].astype(np.float64) * 32768)
         if frontend.verify_md5(a, ints.astype(np.int64).reshape(a.total, 2)) is not True:
             fail(f"mesh {label} FLAC short file {i} fails its MD5")
-    # K5 three times, one kernel launch per card each; K3 and K4 never
+    # R1 once per data shard, K5 three times, one kernel launch per card
+    # each; K3 and K4 never
     cards = len(set(mesh.axis_devices("data")))
     want = {"window_add": 0, "window_add2": 0, "window_add_spmd": 3,
-            "window_add_spmd_kernel": 3 * cards}
+            "window_add_spmd_kernel": 3 * cards, "flac_rice": D}
     if {k: counts[k] for k in want} != want:
         fail(f"mesh {label} FLAC launched {counts}, want {want}")
     launches["flac"] = counts
@@ -2406,12 +2491,12 @@ def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
             fail(f"mesh {label} {path} launched {launches[path]}, want {want}")
     calls = {k: len(v) for k, v in seen_all.items()}
     want = {"mp3_entropy_scan": D, "mp3_polyphase_synthesis": 2 * D,
-            "window_add_spmd": 3 * cards}
+            "window_add_spmd": 3 * cards, "flac_rice": D}
     if calls != want:
         fail(f"mesh {label}: the kernels' wrappers were called {calls} "
              f"times, want {want}")
     shapes = captured_kernels(seen_all, f"mesh {label}")
-    log(f"mesh {label}: every K1, K2 and K5 call of the sharded MP3, Layer "
+    log(f"mesh {label}: every K1, K2, R1 and K5 call of the sharded MP3, Layer "
         f"II and FLAC runs ({calls}) held against its twin on its inputs")
     return launches, shapes
 
@@ -2578,7 +2663,7 @@ def phase_multichip(folder: str, wavs: dict, layer2: bytes, dev, card: str,
 # ---------------------------------------------------------------------------
 
 ENCODE_KERNELS = ("mp3_entropy_scan", "mp3_polyphase_synthesis", "window_add2",
-                  "window_add")
+                  "window_add", "flac_rice")
 
 
 def _cli_run(argv: list) -> tuple[int, str]:
@@ -2601,8 +2686,8 @@ def _quantized16(pcm: np.ndarray) -> np.ndarray:
 
 def _decode_back(folder: str, dev, label: str):
     """``decode_dir(folder, device="cuda")`` of written .flac files, counted
-    alone, with the FLAC decoder's device groups counted beside it: K4 and
-    K3 must launch exactly once per group and nothing else at all."""
+    alone, with the FLAC decoder's device groups counted beside it: R1, K4
+    and K3 must launch exactly once per group and nothing else at all."""
     import audio_decoder_tpu_torch as adt
     from audio_decoder_tpu_torch.codecs.flac import decoder as FD
 
@@ -2617,8 +2702,8 @@ def _decode_back(folder: str, dev, label: str):
     (batch, names), counts, seen, wall = _counted_kernels(
         lambda: adt.decode_dir(folder, device=dev),
         [(FD, "_decode_batch", counting)])
-    want = {k: len(groups) if k in ("window_add", "window_add2") else 0
-            for k in counts}
+    want = {k: len(groups) if k in ("window_add", "window_add2", "flac_rice")
+            else 0 for k in counts}
     if len(groups) < 1 or counts != want:
         fail(f"{label}: the decode back launched {counts}, want {want} "
              f"({len(groups)} FLAC groups of {groups} files)")
@@ -2698,7 +2783,7 @@ def _encode_stages(x: np.ndarray, dev, level: int) -> dict:
 def phase_flac_export(folder: str, wavs: dict, flac_folder: str, work: str,
                       dev, card: str, main_launches: dict) -> dict:
     """Phase 14: FLAC export on the card.  Returns {kernel: {"launches":
-    {run: n}, "shapes": [...]}} for K1-K4."""
+    {run: n}, "shapes": [...]}} for K1-K4 and R1."""
     import audio_decoder_tpu_torch as adt
     from audio_decoder_tpu_torch.codecs.flac import frontend
     from audio_decoder_tpu_torch.io import encode as IE
@@ -2763,7 +2848,7 @@ def phase_flac_export(folder: str, wavs: dict, flac_folder: str, work: str,
             fail(f"{name}.flac fails its STREAMINFO MD5")
     log(f"FLAC export: all {len(written)} files decode on the card to their "
         f"sources' quantization bit for bit with their MD5 ({back_wall:.3f} s; "
-        f"K4 and K3 once per FLAC group, {len(groups)} groups of {groups} "
+        f"R1, K4 and K3 once per FLAC group, {len(groups)} groups of {groups} "
         f"files)")
 
     # (b) the card against the CPU on each exported file's PCM

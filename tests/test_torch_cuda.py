@@ -11,9 +11,11 @@ suite's JAX conftest:
 ``window_case`` also serves the CPU tests of the window-add twins
 (tests/test_torch_window_add.py), so both hold the same cases; so do
 ``window1_case`` (K3's own edges), which also serves
-tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges) and
-``spmd_case`` (K5's) do; ``spmd_shards`` also builds the CPU tests' K5
-cases (tests/test_torch_parallel.py).  The FLAC encoder's bar
+tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges),
+``spmd_case`` (K5's) and ``rice_case`` (the rice scan's; with
+``rice_plain`` it serves tests/test_torch_rice_scan.py too) do;
+``spmd_shards`` also builds the CPU tests' K5 cases
+(tests/test_torch_parallel.py).  The FLAC encoder's bar
 (``check_pass_a``, ``check_pass_b``) and ``flac_passes`` serve
 tests/test_torch_flac_encode.py and chip_smoke.py's export phase too.
 """
@@ -36,6 +38,7 @@ from audio_decoder_tpu_torch.codecs.flac import decoder as FD
 from audio_decoder_tpu_torch.codecs.flac import device as FV
 from audio_decoder_tpu_torch.codecs.flac import frontend as FF
 from audio_decoder_tpu_torch.codecs.mpeg import native
+from audio_decoder_tpu_torch.ops import rice_scan as RS
 from audio_decoder_tpu_torch.ops import synth_kernel as SK
 from audio_decoder_tpu_torch.ops import window_add as PW
 
@@ -843,6 +846,141 @@ def test_flac_chunked_route_cuda_matches_cpu(cuda_device, monkeypatch):
     assert int(gpu.err[0]) == 0 and int(cpu.err[0]) == 0
     assert np.array_equal(gpu.file(0).pcm, cpu.file(0).pcm)
     assert int(gpu.valid_frames[0]) == int(cpu.valid_frames[0]) == 441000
+
+
+# ---------------------------------------------------------------------------
+# The FLAC rice scan kernel (csrc/flac_rice.cu)
+# ---------------------------------------------------------------------------
+
+#: ids of ``rice_case``
+RICE_CASES = ("narrow", "wide", "narrow-long", "wide-long", "wide-odd-width",
+              "no-lanes", "no-steps")
+
+
+def rice_case(cid: str):
+    """(stream u8, bitpos i32, count i32, param i32, limit i64, steps,
+    narrow) of the rice scan's edge ``cid``, from a fixed numpy seed: 300
+    random lanes (more than two blocks of 128, the last warp partial) over
+    a random stream with a zero run, rice parameters up to 16 (narrow) or
+    30 (wide), widths of one chunk of 32 codes, of 8 chunks (the loader's
+    256 codes), and 258 and 18 (a partial last chunk); rows 0-1 sit in the
+    zero run (all-zero windows: overflow), row 2 has count 0 and row 3
+    count = steps*K, rows 4-9 a limit a few codes on (their cursors reach
+    it inside a step), rows 10-14 a bitpos within 5 bytes of the stream's
+    end, rows 15-16 the variant's largest parameter and 0, row 17 a limit
+    below its bitpos; no lanes; no steps."""
+    narrow = not cid.startswith("wide")
+    steps = {"narrow": 4, "wide": 4, "narrow-long": 32, "wide-long": 43,
+             "wide-odd-width": 3, "no-lanes": 4, "no-steps": 0}[cid]
+    W = steps * FV.rice_k(narrow)
+    pmax = 16 if narrow else 30
+    L = 0 if cid == "no-lanes" else 300
+    rng = np.random.default_rng(40 + RICE_CASES.index(cid))
+    n = 20000
+    stream = rng.integers(0, 256, size=n).astype(np.uint8)
+    stream[1000:1040] = 0
+    bitpos = rng.integers(0, (n - 600) * 8, size=L).astype(np.int64)
+    count = rng.integers(0, W + 1, size=L)
+    param = rng.integers(0, pmax + 1, size=L)
+    limit = np.full(L, n * 8, np.int64)
+    if L:
+        bitpos[:2] = 1000 * 8 + np.asarray([0, 37])
+        count[2] = 0
+        limit[4:10] = bitpos[4:10] + rng.integers(1, 80, size=6)
+        bitpos[10:15] = (n - 5) * 8 + rng.integers(0, 40, size=5)
+        param[15:17] = (pmax, 0)
+        limit[17] = bitpos[17] - 100
+        count[[0, 1, 3] + list(range(4, 18))] = W
+    return (stream, bitpos.astype(np.int32), count.astype(np.int32),
+            param.astype(np.int32), limit, steps, narrow)
+
+
+def rice_plain(stream, bitpos, count, param, limit, steps, narrow):
+    """The plain twin on the CPU and the decode's mask: (values i32
+    ``[L, steps*K]`` zero at and past ``count``, ovf bool ``[L]``)."""
+    t = [torch.as_tensor(a) for a in (stream, bitpos, count, param, limit)]
+    rv, ovf = FV._rice_scan(*t, steps, narrow)
+    live = torch.arange(rv.shape[1])[None, :] < t[2][:, None]
+    return torch.where(live, rv, 0), ovf
+
+
+@pytest.mark.parametrize("cid", RICE_CASES)
+def test_rice_scan_kernel_matches_plain(cuda_device, cid):
+    """One launch per call, the twin's masked values and its overflow bit
+    for bit."""
+    case = rice_case(cid)
+    want_v, want_o = rice_plain(*case)
+    before = RS.launches["flac_rice"]
+    args = [torch.as_tensor(a).to(cuda_device) for a in case[:5]]
+    steps, narrow = case[5:]
+    got_v, got_o = RS.rice_scan_cuda(*args, steps, narrow, FV.rice_k(narrow),
+                                     FF.Q_CAP)
+    torch.cuda.synchronize()
+    assert RS.launches["flac_rice"] == before + 1
+    assert got_v.dtype == torch.int32 and got_o.dtype == torch.bool
+    assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_o.cpu(), want_o)
+    if cid not in ("no-lanes", "no-steps"):  # overflow lanes and clean ones
+        assert want_o[:2].all() and not want_o.all()
+
+
+def test_rice_scan_raises_when_the_kernel_fails(cuda_device, monkeypatch):
+    """No fallback: a launch that returns a CUDA error raises."""
+    class Failing:
+        @staticmethod
+        def flac_rice_scan_launch(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    args = [torch.as_tensor(a).to(cuda_device) for a in rice_case("narrow")[:5]]
+    monkeypatch.setattr(RS, "load_library", lambda: Failing)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        FV._rice_lanes(*args, 4, True)
+
+
+@pytest.mark.parametrize("narrow", (True, False))
+def test_rice_scan_refuses_another_step_count(cuda_device, narrow):
+    """The variant's codes per step are compiled into the kernel: a caller
+    that counts the other variant's gets CUDA's invalid-value error and
+    nothing launches."""
+    args = [torch.as_tensor(a).to(cuda_device) for a in rice_case("narrow")[:5]]
+    before = RS.launches["flac_rice"]
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        RS.rice_scan_cuda(*args, 12, narrow, FV.rice_k(not narrow), FF.Q_CAP)
+    assert RS.launches["flac_rice"] == before
+
+
+def _rice_wire_batches():
+    """Two batches of files made by the port's own encoder, one narrow
+    (16-bit tonal material: rice parameters <= 16) and one wide (24-bit
+    tones under loud noise: parameters above 16)."""
+    from audio_decoder_tpu_torch.codecs.flac.encode import encode_flac
+
+    rng = np.random.default_rng(19)
+    narrow = [encode_flac(flac_music(rng, S), 44100, bits=16, device="cpu")
+              for S in (30000, 9000)]
+    loud = [(0.4 * np.sin(np.arange(S) * 0.01)[:, None]
+             + 0.05 * rng.standard_normal((S, 1))).astype(np.float32)
+            for S in (12000, 5000)]
+    wide = [encode_flac(x, 48000, bits=24, device="cpu") for x in loud]
+    return {True: narrow, False: wide}
+
+
+def test_flac_decode_wire_with_the_rice_kernel_matches_cpu(cuda_device):
+    """A whole ``flac_decode_wire`` on the card, packed by
+    ``decoder.pack_wire`` from the port's own encodes, equals the CPU path
+    bit for bit in each variant, with one rice launch per call."""
+    for narrow, blobs in _rice_wire_batches().items():
+        an = [FF.analyze(b) for b in blobs]
+        assert FD.sizing_for(an)["rice_narrow"] is narrow
+        outs = []
+        for dev, launched in (("cpu", 0), (cuda_device, 1)):
+            before = RS.launches["flac_rice"]
+            args, statics = FD.pack_wire(an, dev)
+            pcm, ovf = FV.flac_decode_wire(*args, **statics)
+            outs.append((pcm.cpu(), ovf.cpu()))
+            assert RS.launches["flac_rice"] == before + launched
+        (cp, co), (gp, go) = outs
+        assert not co.any() and torch.equal(go, co)
+        assert torch.equal(gp, cp)
 
 
 # ---------------------------------------------------------------------------

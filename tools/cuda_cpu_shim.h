@@ -6,12 +6,13 @@
 // blocks run one after another, so `static` stands in for `__shared__`
 // (tools/rehearse_cuda.py turns `extern __shared__` arrays into a static
 // array of shim::kDynSmem bytes).  __syncthreads is a barrier over the block,
-// a warp shuffle a barrier over the warp around a shared slot array, and
-// cp.async a memcpy at issue time (commit and wait do nothing), so a kernel
-// that reads a staged buffer before its wait still passes here: only the
-// card shows that.  Atomics are the compiler's, fences are full fences.
-// The cache-hinted loads and stores (__ldg, __ldcg, __stcg, __stwb) are
-// plain copies that abort on an access the card would find misaligned.
+// __syncwarp one over the warp, a warp shuffle a barrier over the warp
+// around a shared slot array, and cp.async a memcpy at issue time (commit
+// and wait do nothing), so a kernel that reads a staged buffer before its
+// wait still passes here: only the card shows that.  Atomics are the
+// compiler's, fences are full fences.  The cache-hinted loads and stores
+// (__ldg, __ldcg, __stcg, __stwb) are plain copies that abort on an access
+// the card would find misaligned.
 // Sources guard their PTX helpers with `#ifndef CUDA_CPU_SHIM`.
 
 #pragma once
@@ -168,6 +169,10 @@ inline void launch(dim3 grid, dim3 threads, size_t smem,
 }  // namespace shim
 
 inline void __syncthreads() { shim::sync(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  shim::block->warp_bar[shim::tid / 32]->arrive_and_wait();
+}
+inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 [[noreturn]] inline void __trap() {
   std::fprintf(stderr, "cuda_cpu_shim: __trap() in block %u thread %u\n",

@@ -25,7 +25,11 @@ same way on K3's cases (``WINDOW1_CASES``, and the pile-up on updates that
 begin one element into their storage), held exactly against
 ``window_add_plain``, then on K5's (``SPMD_CASES``; the shards as separate
 allocations and, where they have one length, as views of one buffer), held
-exactly against ``window_add_spmd_plain``.  Another source is only built.
+exactly against ``window_add_spmd_plain``.  A file named ``flac_rice.cu``
+(the FLAC rice scan) is run on ``rice_case``'s cases through
+``ops/rice_scan.rice_scan_cuda``, held exactly against ``rice_plain`` (the
+plain twin and the decode's mask), after a call with the other variant's
+codes per step, which it must refuse.  Another source is only built.
 """
 
 from __future__ import annotations
@@ -43,12 +47,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from audio_decoder_tpu_torch.ops import rice_scan as RS  # noqa: E402
 from audio_decoder_tpu_torch.ops import window_add as PW  # noqa: E402
 
 SHIM = os.path.join(ROOT, "tools", "cuda_cpu_shim.h")
 OUT = os.path.join(ROOT, "build", "rehearse")
 K4 = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "window_add2.cu")
 K3 = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "window_add.cu")
+RICE = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "flac_rice.cu")
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                      re.S)
@@ -197,6 +203,44 @@ def rehearse_k5(so: str, only: str | None) -> None:
                                  f"{ref[bad[:8]].tolist()}")
 
 
+def rehearse_rice(so: str, only: str | None) -> None:
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from audio_decoder_tpu_torch.codecs.flac import frontend as FF
+    from tests.test_torch_cuda import RICE_CASES, rice_case, rice_plain
+
+    lib = C.CDLL(so)
+    RS._declare(lib)
+    args = [torch.as_tensor(a) for a in rice_case("narrow")[:5]]
+    try:  # the other variant's codes per step: refused, nothing written
+        RS.rice_scan_cuda(*args, 12, True, FV.rice_k(False), FF.Q_CAP,
+                          lib=lib, cuda_stream=0)
+    except RuntimeError as e:
+        print(f"rice: another step count refused ({e})", flush=True)
+    else:
+        raise SystemExit("rice: the library took the wide step count for "
+                         "the narrow variant")
+    for cid in RICE_CASES:
+        if only and cid != only:
+            continue
+        t0 = time.perf_counter()
+        case = rice_case(cid)
+        args = [torch.as_tensor(a) for a in case[:5]]
+        steps, narrow = case[5:]
+        got_v, got_o = RS.rice_scan_cuda(*args, steps, narrow,
+                                         FV.rice_k(narrow), FF.Q_CAP,
+                                         lib=lib, cuda_stream=0)
+        want_v, want_o = rice_plain(*case)
+        ok = torch.equal(got_v, want_v) and torch.equal(got_o, want_o)
+        print(f"rice {cid}: {'ok' if ok else 'DIFFERS'} (lanes "
+              f"{got_v.shape[0]}, codes {got_v.shape[1]}; "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        if not ok:
+            bad = torch.nonzero(got_v != want_v)
+            raise SystemExit(f"rice {cid}: {bad.shape[0]} values differ, first "
+                             f"{bad[:4].tolist()}; ovf differs at "
+                             f"{torch.nonzero(got_o != want_o).flatten()[:8].tolist()}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("source", nargs="?", default=K4)
@@ -209,6 +253,8 @@ def main() -> None:
     elif os.path.basename(args.source) == os.path.basename(K3):
         rehearse_k3(so, args.only)
         rehearse_k5(so, args.only)
+    elif os.path.basename(args.source) == os.path.basename(RICE):
+        rehearse_rice(so, args.only)
 
 
 if __name__ == "__main__":
