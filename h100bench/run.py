@@ -4,23 +4,34 @@
 
 from the root of a checkout.  The cell, its configuration and its traffic
 mix come from ``BENCHMARK.json``; the configuration's maker makes the pool
-of files (``inputs/``, kept by ``pool.py``), the mix and the seed say
-which files each call decodes (``traffic.py``, ``mixes/``), and each
-metric is read by
-``metrics/<name>.py`` (or ``metrics/<name up to its first dot>.py``).
-The program under test is entered only through
-``audio_decoder_tpu_torch.codecs.registry.decode_assets``, on host bytes.
+of files (``inputs/``, kept by ``pool.py``), the configuration names the
+program its calls drive (``programs/<name>.py``, ``decode`` where it names
+none), and each metric is read by ``metrics/<name>.py`` (or
+``metrics/<name up to its first dot>.py``).  The program under test, the
+port, is entered only through that program module; the loop here knows no
+program.
 
 Set-up (``setup_s``) runs from the start of this process: imports, CUDA
-initialisation, the program's libraries (built into its own ``build/`` on
-a checkout's first run), the pool of files (made on a checkout's first
-run, read after), each call's copies, and the warm-up calls.  Then
-calls go back to back, each ending in a host fetch of its metadata and a
-column of its PCM, until ``--seconds`` have passed.  With ``--trace 1``
-the profiler records the mix's stretch of calls and the per-layer metrics
-are printed instead of the end-to-end ones.  Once the window has closed,
-the outputs are held to the reference (``check.py``), and the line is
-printed only if no JAX module has been loaded in the process by then.
+initialisation, the pool of files (made on a checkout's first run, read
+after), the program's session (its libraries, built into the port's own
+``build/`` on a checkout's first run, and whatever it lays out in
+advance), and the warm-up calls.  Then calls go back to back, each ending
+in a host fetch, until ``--seconds`` have passed.  With ``--trace 1`` the
+profiler records the mix's stretch of calls and the per-layer metrics are
+printed instead of the end-to-end ones.  Once the window has closed, the
+program's kept outputs are held to its reference, and the line is printed
+only if no JAX module has been loaded in the process by then.
+
+The loop reads these keys of a mix; a program reads its own:
+
+* ``warmup_calls``: the first calls of the schedule, run in set-up; the
+  window goes on from the next;
+* ``check_calls``: calls whose output is kept for the comparison, drawn
+  from the seed over the window's calls;
+* ``trace_skip``, ``trace_calls``: with ``--trace 1``, the calls of the
+  window that the profiler records;
+* ``torch_threads`` (optional): the caller's intra-op threads, as a
+  serving process sets them.
 """
 
 from __future__ import annotations
@@ -40,10 +51,11 @@ from types import SimpleNamespace  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from . import check, pool, traffic  # noqa: E402
+from . import pool, traffic  # noqa: E402
 from . import trace as trace_mod  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PROGRAMS = os.path.join(HERE, "programs")
 ROOT = os.path.dirname(HERE)
 CACHE = os.path.join(ROOT, ".h100bench_cache")
 WORKERS = min(8, os.cpu_count() or 1)
@@ -79,43 +91,47 @@ def cell_metrics(bench: dict, cell: dict, traced: bool) -> list[dict]:
     return [m for m in pool if cell["name"] in m.get("workloads", [cell["name"]])]
 
 
+def _module(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module   # dataclasses look their module up there
+    spec.loader.exec_module(module)
+    return module
+
+
 def reader(name: str):
     """``metrics/<name>.py``, else ``metrics/<name up to its first dot>.py``."""
     for stem in (name, name.split(".")[0]):
         path = os.path.join(HERE, "metrics", f"{stem}.py")
         if os.path.exists(path):
-            spec = importlib.util.spec_from_file_location(f"h100bench.metrics.{stem}", path)
-            module = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(module)
-            return module.read
+            return _module(path, f"h100bench.metrics.{stem}").read
     raise FileNotFoundError(f"no reader for metric {name!r}")
 
 
-def _fetch(batch, torch) -> np.ndarray:
-    """The call's host fetch: its metadata and a NaN flag of the last PCM
-    column, so that it waits for the device work that wrote the PCM."""
-    nan = torch.isnan(batch.data[:, -1]).to(torch.int32)
-    rows = [batch.sample_rate, batch.num_channels, batch.valid_frames, batch.err, nan]
-    return torch.stack([r.to(torch.int32) for r in rows]).cpu().numpy().astype(np.int64)
+def program(config: dict, where: str = PROGRAMS):
+    """The module ``<where>/<the configuration's program>.py``."""
+    name = config.get("program", "decode")
+    path = os.path.join(where, f"{name}.py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no program {name!r} in {where}")
+    return _module(path, f"h100bench.programs.{name}")
 
 
 def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool, *,
-             device: str = "cuda", decode=None, t_start: float = T_START,
-             cache_root: str = CACHE, workers: int = WORKERS,
-             config_over: dict | None = None, mix_over: dict | None = None) -> dict:
+             device: str = "cuda", t_start: float = T_START, cache_root: str = CACHE,
+             workers: int = WORKERS, config_over: dict | None = None,
+             mix_over: dict | None = None, programs: str = PROGRAMS, **hooks) -> dict:
     """One run of a cell: the result line's object.  The tests shrink the
-    cell (``config_over``, ``mix_over``), run it on the CPU and break
-    ``decode``, which stands in for ``decode_assets``."""
+    cell (``config_over``, ``mix_over``), run it on the CPU, take the
+    program from another directory (``programs``) and break it underneath
+    (``hooks``, which go to the program's ``start``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from audio_decoder_tpu_torch.codecs.registry import decode_assets
-    from audio_decoder_tpu_torch.io.assets import Asset
-
-    decode = decode or decode_assets
     cell, config, mix = cell_parts(bench, workload)
     config = {**config, **(config_over or {})}
     mix = {**mix, **(mix_over or {})}
+    prog = program(config, programs)
     on_card = torch.device(device).type == "cuda"
     if "torch_threads" in mix:
         torch.set_num_threads(int(mix["torch_threads"]))
@@ -123,35 +139,23 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
     t0 = time.perf_counter()
     inputs, made = pool.load(config, cache_root, workers)
     pool_s = time.perf_counter() - t0
-    schedule = traffic.Schedule(mix, inputs, seed)
-    pool_assets = [Asset(path=f"{n}.{inputs.ext}", name=n, ext=inputs.ext, data=b)
-                   for n, b in zip(inputs.names, inputs.blobs)]
-    prepared = None
-    if schedule.prepared is not None:
-        prepared = [[Asset(path=f"{inputs.names[i]}.{inputs.ext}", name=inputs.names[i],
-                           ext=inputs.ext, data=b)
-                     for i, b in zip(schedule.files(k), blobs)]
-                    for k, blobs in enumerate(schedule.prepared)]
-
-    def assets_of(k: int):
-        if prepared is None:
-            return [pool_assets[i] for i in schedule.files(k)]
-        return prepared[k % len(prepared)]
+    t0 = time.perf_counter()
+    session = prog.start(config, mix, inputs, seed, device, **hooks)
+    start_s = time.perf_counter() - t0
 
     warmup = int(mix["warmup_calls"])
     t0 = time.perf_counter()
     for k in range(warmup):
-        _fetch(decode(assets_of(k), device=device), torch)
+        session.call(k)
     if on_card:
         torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     setup_s = time.perf_counter() - t_start
     print(f"set-up {setup_s:.3f} s: pool of {len(inputs.blobs)} files "
-          f"{'made' if made else 'read'} in {pool_s:.3f} s, "
-          f"{0 if prepared is None else len(prepared)} calls' rotated copies, "
-          f"warm-up {warm_s:.3f} s", file=sys.stderr)
+          f"{'made' if made else 'read'} in {pool_s:.3f} s, {config.get('program', 'decode')} "
+          f"session in {start_s:.3f} s, warm-up {warm_s:.3f} s", file=sys.stderr)
 
-    calls: list[check.Call] = []
+    records, latencies = [], []
     kept = traffic.Reservoir(int(mix["check_calls"]), seed)
     skip, n_traced = int(mix["trace_skip"]), int(mix["trace_calls"])
     prof = stretch = None
@@ -166,18 +170,14 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
             prof.__enter__()
             stretch = record_function("h100bench.stretch")
             stretch.__enter__()
-        k = warmup + p
-        assets = assets_of(k)
         t0 = time.perf_counter()
         with record_function("h100bench.call"):
-            batch = decode(assets, device=device)
-        with record_function("h100bench.fetch"):
-            meta = _fetch(batch, torch)
+            record, output = session.call(warmup + p)
         t_end = time.perf_counter()
-        calls.append(check.Call(k, schedule.files(k), tuple(batch.names),
-                                tuple(batch.formats), meta, t_end - t0))
-        kept.offer(p, batch)
-        del batch
+        records.append(record)
+        latencies.append(t_end - t0)
+        kept.offer(p, output)
+        del output
         if stretch is not None:
             traced_calls.append(p)
             if len(traced_calls) == n_traced:
@@ -191,29 +191,24 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     # the program's state goes before the references run
-    outputs = {}
-    for q, b in kept.kept.items():
-        rows = check.rows_to_check(mix, seed, calls[q].k)
-        outputs[q] = (b.data[rows].cpu().numpy(), b.channels, rows)
+    outputs = {q: session.to_host(records[q], out) for q, out in kept.kept.items()}
     kept.kept.clear()
+    session.close()
     if on_card:
         torch.cuda.empty_cache()
 
-    def audio_of(c: check.Call) -> float:
-        ok = c.meta[3] == 0
-        return float((c.meta[2][ok] / np.maximum(c.meta[0][ok], 1)).sum())
-
     tr = None
     if traced:
-        tr = trace_mod.from_profile(prof, len(traced_calls), [calls[j].files for j in traced_calls],
-                                    sum(audio_of(calls[j]) for j in traced_calls))
+        tr = trace_mod.from_profile(prof, len(traced_calls),
+                                    [records[j].files for j in traced_calls],
+                                    sum(records[j].audio_s for j in traced_calls))
 
     t0 = time.perf_counter()
-    checks, failed = check.judge(config, inputs, calls, outputs, schedule.blobs, workers)
+    checks, failed = session.judge(records, outputs, workers)
     judge_s = time.perf_counter() - t0
-    run = SimpleNamespace(setup_s=setup_s, wall_s=wall_s, calls=calls,
-                          audio_s=sum(audio_of(c) for c in calls),
-                          latencies=np.array([c.seconds for c in calls]),
+    run = SimpleNamespace(setup_s=setup_s, wall_s=wall_s, calls=records,
+                          audio_s=sum(r.audio_s for r in records),
+                          latencies=np.array(latencies),
                           trace=tr, inputs=inputs, config=config, cell=cell)
     metrics = {}
     for m in cell_metrics(bench, cell, traced):
@@ -226,15 +221,14 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
     if tr is not None:
         dev.update(busy_s=tr.busy_s, window_s=tr.window_s)
     result = {"correct": all(v <= lim for v, lim in checks.values()) and failed == 0,
-              "attempted": len(calls), "failed": failed, "metrics": metrics, "device": dev}
+              "attempted": len(records), "failed": failed, "metrics": metrics, "device": dev}
     if tr is not None:
         result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
     q = np.percentile(run.latencies, [0, 25, 50, 75, 100]) * 1e3
-    n_files = sum(len(r) for _, _, r in outputs.values())
-    print(f"window {wall_s:.3f} s, {len(calls)} calls, {run.audio_s:.3f} audio-s, "
-          f"{n_files} files of {len(outputs)} calls compared in {judge_s:.3f} s; "
+    print(f"window {wall_s:.3f} s, {len(records)} calls, {run.audio_s:.3f} audio-s, "
+          f"{len(outputs)} kept calls judged in {judge_s:.3f} s; "
           "call ms min/q1/median/q3/max " + "/".join(f"{v:.2f}" for v in q)
-          + "; first calls ms " + " ".join(f"{c.seconds * 1e3:.2f}" for c in calls[:5]),
+          + "; first calls ms " + " ".join(f"{s * 1e3:.2f}" for s in latencies[:5]),
           file=sys.stderr)
     result["checks"] = {name: {"value": v, "limit": lim} for name, (v, lim) in checks.items()}
     return result

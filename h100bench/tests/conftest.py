@@ -1,6 +1,7 @@
 """Shared helpers of the benchmark's own tests (CPU; the ``cuda`` ones
 decide inside the test whether a card is there)."""
 
+import json
 import os
 import sys
 import time
@@ -11,18 +12,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-#: each cell cut to a size a CPU test holds: (config overrides, mix overrides)
-SMALL = {
-    "fma-mp3.loader": ({"pool_files": 3, "clip_seconds": 1.0},
-                       {"files_per_call": 2, "prepared_calls": 4, "check_calls": 2,
-                        "check_files": 2, "trace_calls": 1}),
-    "librispeech-flac.loader": ({"pool_files": 6, "mean_length_s": 1.5, "min_length_s": 0.5,
-                                 "max_length_s": 3.0},
-                                {"files_per_call": 2, "check_calls": 2, "check_files": 2}),
-    "fma-mp3.single": ({"pool_files": 2, "clip_seconds": 1.0},
-                       {"prepared_calls": 3, "warmup_calls": 1, "check_calls": 2,
-                        "trace_skip": 1, "trace_calls": 1}),
-}
+SMALL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "small")
+
+
+def small(cell: str) -> tuple[dict, dict]:
+    """The cell cut to a size a CPU test holds, ``small/<cell>.json``:
+    (configuration overrides, mix overrides)."""
+    with open(os.path.join(SMALL, f"{cell}.json")) as f:
+        cut = json.load(f)
+    return cut["config"], cut["mix"]
+
+
+def program_cells(bench: dict, name: str) -> list[str]:
+    """The cells whose configuration drives the program ``name``."""
+    from h100bench import run
+
+    return [w["name"] for w in bench["workloads"]
+            if run.cell_parts(bench, w["name"])[1].get("program", "decode") == name]
 
 
 @pytest.fixture(scope="session")
@@ -34,7 +40,7 @@ def cache(tmp_path_factory):
 def small_run(bench, cell, cache, traced=False, seed=2**33 + 11, **kw):
     from h100bench import run
 
-    cover, mover = SMALL[cell]
+    cover, mover = small(cell)
     cover = {**cover, **kw.pop("config_over", {})}
     mover = {**mover, **kw.pop("mix_over", {})}
     return run.run_cell(bench, cell, seed, 0.2, traced, device="cpu", config_over=cover,

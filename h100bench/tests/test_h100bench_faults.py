@@ -9,7 +9,7 @@ import dataclasses
 import pytest
 
 from h100bench import control, pool, run
-from h100bench.tests.conftest import SMALL, small_run
+from h100bench.tests.conftest import program_cells, small, small_run
 
 BENCH = run.load_benchmark()
 
@@ -56,9 +56,14 @@ def _swapped(decode):
     return f
 
 
-#: each cell with each fault it can have (a call of one file has nothing to swap)
-CASES = [(cell, fault) for cell in SMALL for fault in (_stale, _half, _altered, _swapped)
-         if fault is not _swapped or SMALL[cell][1].get("files_per_call", 1) > 1]
+def _files_per_call(cell):
+    return int({**run.cell_parts(BENCH, cell)[2], **small(cell)[1]}["files_per_call"])
+
+
+#: each decode cell with each fault it can have (a call of one file has nothing to swap)
+CASES = [(cell, fault) for cell in program_cells(BENCH, "decode")
+         for fault in (_stale, _half, _altered, _swapped)
+         if fault is not _swapped or _files_per_call(cell) > 1]
 
 
 @pytest.mark.parametrize("cell,fault", CASES, ids=[f"{c}-{f.__name__[1:]}" for c, f in CASES])
@@ -80,8 +85,8 @@ def test_the_sound_decode_is_correct(cache):
 @pytest.mark.parametrize("cell", ["fma-mp3.loader", "librispeech-flac.loader"])
 def test_the_control_in_the_programs_place_is_not_correct(cell, cache):
     _, config, mix = run.cell_parts(BENCH, cell)
-    config = {**config, **SMALL[cell][0]}
-    mix = {**mix, **SMALL[cell][1]}
+    cover, mover = small(cell)
+    config, mix = {**config, **cover}, {**mix, **mover}
     inputs, _ = pool.load(config, cache, 1)
     out = control.judged(config, mix, inputs, 2**40 + 7, 1)
     assert out["correct"] is False and out["files"] == 4

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from h100bench import run, traffic
-from h100bench.tests.conftest import ROOT, small_run
+from h100bench.tests.conftest import ROOT, SMALL, small_run
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -65,10 +65,10 @@ def test_benchmark_json_follows_the_contract():
 def test_every_piece_is_found_by_name(cell):
     c, config, mix = run.cell_parts(BENCH, cell)
     assert os.path.exists(os.path.join(ROOT, "h100bench", "inputs", f"{config['maker']}.py"))
-    assert mix["files_per_call"] >= 1
-    if config["check"]["reference"] != "source":
-        assert os.path.exists(os.path.join(ROOT, "h100bench", "reference",
-                                           f"{config['check']['reference']}.py"))
+    assert os.path.exists(os.path.join(SMALL, f"{cell}.json"))
+    assert all(key in mix for key in ("warmup_calls", "check_calls", "trace_skip", "trace_calls"))
+    for piece in run.program(config).pieces(config, mix):
+        assert os.path.exists(os.path.join(ROOT, piece)), piece
     for m in run.cell_metrics(BENCH, c, False) + run.cell_metrics(BENCH, c, True):
         assert callable(run.reader(m["name"]))
 

@@ -10,13 +10,13 @@ from h100bench import pool
 from h100bench.inputs import flac_writer, mp3_writer, music_mp3, speech_flac
 from h100bench.reference import flac, mp3
 from h100bench.run import cell_parts, load_benchmark
-from h100bench.tests.conftest import SMALL
+from h100bench.tests.conftest import small
 
 BENCH = load_benchmark()
 
 
 def _config(cell):
-    return {**cell_parts(BENCH, cell)[1], **SMALL[cell][0]}
+    return {**cell_parts(BENCH, cell)[1], **small(cell)[0]}
 
 
 def test_the_speech_lengths_keep_the_corpus_mean_and_cap():
