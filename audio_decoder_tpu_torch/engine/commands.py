@@ -36,6 +36,10 @@ jitter flag uses the same mini-language (default-all 0.0): each value is
 the maximum trigger delay as a fraction of the tempo interval, applied
 per step in the renderer — the reference parses -j but leaves it as an
 empty stub (commands.rs:1125-1136); here it works.
+
+Every read of the device state on the host goes through
+``utils/trace.to_host`` and every host array put into it through
+``to_device``, so the ``sync`` counter sees the waits a command costs.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from .state import (
     MAX_PROCS, MAX_STEPS, PROC_ENV, PROC_NONE, PROC_SEQ, PROC_TREM,
     EngineArrays, HostRegistry,
 )
+from ..utils.trace import to_device, to_host
 
 
 class CmdErr(Exception):
@@ -424,9 +429,18 @@ class CmdProcessor:
 # ---------------------------------------------------------------- apply
 
 
+def _int(t: torch.Tensor) -> int:
+    """A device scalar read on the host (a fetch, counted under ``sync``)."""
+    return int(to_host(t))
+
+
 def _set(t: torch.Tensor, idx, value) -> torch.Tensor:
-    """A copy of ``t`` with ``t[idx] = value`` (JAX's ``t.at[idx].set``)."""
+    """A copy of ``t`` with ``t[idx] = value`` (JAX's ``t.at[idx].set``).
+    A host value goes through ``to_device``: torch sets a Python scalar into
+    a CUDA tensor by a blocking copy from host memory all the same."""
     out = t.clone()
+    if not isinstance(value, torch.Tensor):
+        value = to_device(value, t.device, t.dtype)
     out[idx] = value
     return out
 
@@ -480,7 +494,7 @@ def apply(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArrays:
             # members flagged "inherit from group" (TBD mode) pick it up
             vt = st.v_tempo
             for m in cmd.members:
-                if int(st.v_tempo[m]) == -2:
+                if _int(st.v_tempo[m]) == -2:
                     vt = _set(vt, m, lane)
             st = dataclasses.replace(st, v_tempo=vt)
         return st
@@ -503,7 +517,7 @@ def apply(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArrays:
             # group-level sequencer: every member voice follows the group
             # tempo lane and shares its chance roll (lane-keyed RNG)
             targets = [
-                int(i) for i in np.nonzero(st.v_group.cpu().numpy() == cmd.group)[0]
+                int(i) for i in np.nonzero(to_host(st.v_group) == cmd.group)[0]
             ]
             lane = reg.group_lane(cmd.group)
             if cmd.tempo is not None and cmd.tempo.kind == "own":
@@ -514,19 +528,20 @@ def apply(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArrays:
                     ),
                     g_tempo=_set(st.g_tempo, cmd.group, lane),
                 )
-            if int(st.g_tempo[cmd.group]) < 0:
+            if _int(st.g_tempo[cmd.group]) < 0:
                 raise CmdErr("seq on a group requires a group tempo (-t)")
         else:
             targets = [v]
+        dev = st.p_stepmask.device
         for t in targets:
             slot = _proc_slot(st, t, PROC_SEQ)
             st = dataclasses.replace(
                 st,
                 p_kind=_set(st.p_kind, (t, slot), PROC_SEQ),
                 p_period=_set(st.p_period, (t, slot), cmd.period),
-                p_stepmask=_set(st.p_stepmask, (t, slot), torch.as_tensor(mask)),
-                p_chance=_set(st.p_chance, (t, slot), torch.as_tensor(ch)),
-                p_jitter=_set(st.p_jitter, (t, slot), torch.as_tensor(jt)),
+                p_stepmask=_set(st.p_stepmask, (t, slot), to_device(mask, dev)),
+                p_chance=_set(st.p_chance, (t, slot), to_device(ch, dev)),
+                p_jitter=_set(st.p_jitter, (t, slot), to_device(jt, dev)),
             )
             if cmd.group >= 0:
                 st = dataclasses.replace(
@@ -537,7 +552,7 @@ def apply(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArrays:
         # a voice sequencer with no tempo lane would never fire (the
         # renderer gates triggers on v_tempo >= 0); -2 = awaiting group
         # inheritance is allowed, bare -1 is a user error
-        if cmd.group < 0 and int(st.v_tempo[v]) == -1:
+        if cmd.group < 0 and _int(st.v_tempo[v]) == -1:
             raise CmdErr(
                 "seq on a voice requires a tempo (load -t ... or seq -t ...)"
             )
@@ -546,7 +561,7 @@ def apply(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArrays:
         kind = PROC_TREM if cmd.verb == "trem" else PROC_ENV
         if cmd.group >= 0:
             targets = [
-                int(i) for i in np.nonzero(st.v_group.cpu().numpy() == cmd.group)[0]
+                int(i) for i in np.nonzero(to_host(st.v_group) == cmd.group)[0]
             ]
             lane = reg.group_lane(cmd.group)
             if cmd.tempo is not None and cmd.tempo.kind == "own":
@@ -557,7 +572,7 @@ def apply(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArrays:
                     ),
                     g_tempo=_set(st.g_tempo, cmd.group, lane),
                 )
-            if int(st.g_tempo[cmd.group]) < 0:
+            if _int(st.g_tempo[cmd.group]) < 0:
                 raise CmdErr(f"{cmd.verb} on a group requires a group tempo (-t)")
         else:
             targets = [v]
@@ -577,7 +592,7 @@ def apply(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArrays:
                 st = _bind_tempo_voice(st, reg, t, cmd.tempo)
         # the process phase derives from the voice's tempo lane; same
         # tempo requirement as seq
-        if cmd.group < 0 and int(st.v_tempo[v]) == -1:
+        if cmd.group < 0 and _int(st.v_tempo[v]) == -1:
             raise CmdErr(
                 f"{cmd.verb} on a voice requires a tempo "
                 f"(load -t ... or {cmd.verb} -t ...)"
@@ -593,7 +608,7 @@ def _proc_slot(st: EngineArrays, v: int, kind: int) -> int:
     the voice's existing slot of that kind (re-issuing `seq`/`trem`
     reconfigures it, like the reference replacing its Seq) else claim
     the first free slot."""
-    kinds = st.p_kind[v].cpu().numpy()
+    kinds = to_host(st.p_kind[v])
     same = np.nonzero(kinds == kind)[0]
     if same.size:
         return int(same[0])
@@ -618,7 +633,7 @@ def _bind_tempo_voice(st, reg, v: int, tempo: TempoSpec | None):
             st, v_tempo=_set(st.v_tempo, v, reg.context_lane(tempo.ref))
         )
     if tempo.kind == "group":
-        lane = int(st.g_tempo[tempo.ref]) if tempo.ref >= 0 else -1
+        lane = _int(st.g_tempo[tempo.ref]) if tempo.ref >= 0 else -1
         if lane < 0:
             # group tempo not defined yet: mark "inherit later" (TBD mode,
             # blast_time.rs:66-74)
@@ -631,9 +646,9 @@ def _transport(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArray
     verb = cmd.verb
     if cmd.voice >= 0:
         v = cmd.voice
-        lane = int(st.v_tempo[v])
+        lane = _int(st.v_tempo[v])
         if verb == "start":
-            end = st.track_len[st.v_track[v].long()] - 1
+            end = st.track_len[_int(st.v_track[v])] - 1  # a 0-d index is read anyway
             reset = torch.where(st.v_vel[v] < 0, end.to(torch.float32), 0.0)
             st = dataclasses.replace(
                 st,
@@ -662,7 +677,7 @@ def _transport(st: EngineArrays, reg: HostRegistry, cmd: Command) -> EngineArray
     if cmd.group >= 0:
         g = cmd.group
         members = st.v_group == g
-        lane = int(st.g_tempo[g])
+        lane = _int(st.g_tempo[g])
         if verb == "start":
             st = dataclasses.replace(
                 st,

@@ -16,6 +16,16 @@ without serialization, and the deque alone couldn't exercise the native
 ring the ALSA build ships with.  submit() checks fullness BEFORE parse
 (parse mutates the registry), which keeps the pairing invariant trivially
 true: every successful push has exactly one pending Command.
+
+Spans and counters (``utils/trace``): ``engine.apply`` (the ring drain and
+``commands.apply``), ``engine.render`` (issuing a block or a burst, with a
+CUDA event pair under a profiler; its profiler range is named
+``engine.render.<depth>``), ``engine.fetch`` (the burst's copy to
+the host), ``engine.sink`` and ``engine.status`` (the status snapshot's
+fetch); the counters ``engine.block`` (blocks sunk, items = frames),
+``engine.burst`` (refills, items = depth), ``engine.discard`` (speculated
+blocks thrown away, items = blocks) and ``engine.command`` (commands
+applied).  Every fetch goes through ``to_host``, so ``sync`` counts it.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 
 from ..engine import commands as EC
 from ..engine.render import render_block, render_chain
+from ..utils.trace import TRACE, span, to_host
 from .native import CmdRing, RawTerminal, Sink
 
 PERIOD = 128  # frames per block (≙ runtime.rs:282-284)
@@ -125,20 +136,25 @@ class EngineLoop:
             if self.term.is_set():
                 break
             got_cmd = False
-            while self.ring.try_pop() is not None:
-                got_cmd = True
-                if self._pending:
-                    cmd = self._pending.popleft()
-                    try:
-                        self.state = EC.apply(self.state, self.reg, cmd)
-                    except EC.CmdErr as e:
-                        self.errors.append(str(e))
-                    except Exception as e:  # never kill the audio thread
-                        self.errors.append(f"{cmd.verb}: {e!r}")
+            if self._pending:  # every ring token has its pending Command
+                with span("engine.apply"):
+                    while self.ring.try_pop() is not None:
+                        got_cmd = True
+                        if self._pending:
+                            cmd = self._pending.popleft()
+                            try:
+                                self.state = EC.apply(self.state, self.reg, cmd)
+                                TRACE.count("engine.command")
+                            except EC.CmdErr as e:
+                                self.errors.append(str(e))
+                            except Exception as e:  # never kill the audio thread
+                                self.errors.append(f"{cmd.verb}: {e!r}")
             if got_cmd:
                 # commands take effect on the next SUNK block: discard
                 # the speculated chain (it continued the pre-command
                 # state) and re-render from the committed state
+                if self._spec:
+                    TRACE.count("engine.discard", len(self._spec))
                 self._spec.clear()
                 self._spec_ramp = 1
             if not self._spec:
@@ -147,16 +163,22 @@ class EngineLoop:
                 # ONE device→host copy and one synchronisation, not D
                 depth = max(min(self._spec_ramp, SPEC_DEPTH), 1)
                 self._spec_ramp = min(self._spec_ramp * 2, max(SPEC_DEPTH, 1))
+                TRACE.count("engine.burst", depth)
+                dev = self.state.device
                 if depth == 1:
-                    blk, tail = render_block(
-                        self.state, frames=PERIOD,
-                        out_channels=self.channels)
-                    self._spec.append([blk.cpu().numpy(), tail])
+                    with span("engine.render", device=dev, label=f"engine.render.{depth}"):
+                        blk, tail = render_block(
+                            self.state, frames=PERIOD,
+                            out_channels=self.channels)
+                    with span("engine.fetch"):
+                        self._spec.append([to_host(blk), tail])
                 else:
-                    blks, acts, poss, clocks = render_chain(
-                        self.state, frames=PERIOD,
-                        out_channels=self.channels, depth=depth)
-                    fetched = blks.cpu().numpy()  # one device→host copy
+                    with span("engine.render", device=dev, label=f"engine.render.{depth}"):
+                        blks, acts, poss, clocks = render_chain(
+                            self.state, frames=PERIOD,
+                            out_channels=self.channels, depth=depth)
+                    with span("engine.fetch"):
+                        fetched = to_host(blks)  # one device→host copy
                     for i in range(depth):
                         # rendering advances only these three fields
                         # (render_block's st2 contract) — every other
@@ -166,7 +188,9 @@ class EngineLoop:
                             clock=clocks[i])
                         self._spec.append([fetched[i], tail])
             block_np, self.state = self._spec.popleft()
-            self.sink.write(block_np)
+            with span("engine.sink"):
+                self.sink.write(block_np)
+            TRACE.count("engine.block", PERIOD)
             if collect:
                 out.append(block_np)
         self._snapshot_status()
@@ -191,7 +215,9 @@ class EngineLoop:
         g_ok = torch.where(grp >= 0, st.g_active[grp.clamp(min=0).long()], True)
         counts = torch.stack([
             used.sum(), active.sum(), (active & ~seq & g_ok).sum(),
-            st.g_used.sum(), st.clock.long()]).cpu().tolist()  # one fetch
+            st.g_used.sum(), st.clock.long()])
+        with span("engine.status"):
+            counts = to_host(counts).tolist()  # one fetch
         voices, playing, draining, groups, clock = counts
         self.status = dict(
             voices=voices, playing=playing, draining=draining, groups=groups,

@@ -24,6 +24,9 @@ The functions follow ``jax/_src/prng.py`` and ``jax/_src/random.py``:
   times XLA's f32 ``erf_inv`` polynomial (Giles), not torch's ``erfinv``;
 * ``randint``: two draws from ``split(key)``, combined modulo the span in
   uint32 arithmetic, for int32 results.
+
+Every scalar or key made on the host goes to the device through
+``utils/trace.to_device``, so the ``sync`` counter sees each such copy.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import math
 
 import numpy as np
 import torch
+
+from .trace import to_device
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -66,7 +71,7 @@ def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
 def prng_key(seed: int, *, device="cuda") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` as raw key data ``[hi, lo]``.  Without
     x64, JAX holds the seed in 32 bits: the high word is 0."""
-    return torch.tensor([0, int(seed) & M32], dtype=torch.int64, device=device)
+    return to_device([0, int(seed) & M32], device, torch.int64)
 
 
 def _u32(data, device) -> torch.Tensor:
@@ -74,7 +79,7 @@ def _u32(data, device) -> torch.Tensor:
     int32 → uint32 conversion."""
     if isinstance(data, torch.Tensor):
         return data.to(device=device, dtype=torch.int64) & M32
-    return torch.tensor(int(data) & M32, dtype=torch.int64, device=device)
+    return to_device(int(data) & M32, device, torch.int64)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -119,8 +124,8 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = to_device(minval, key.device, torch.float32)
+    hi = to_device(maxval, key.device, torch.float32)
     return torch.maximum(lo, _fma(floats, hi - lo, lo))
 
 
@@ -143,10 +148,8 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
 
     def coef(i):
-        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=torch.float32,
-                                            device=x.device),
-                           torch.tensor(_ERFINV_GE5[i], dtype=torch.float32,
-                                        device=x.device))
+        return torch.where(lt, to_device(_ERFINV_LT5[i], x.device, torch.float32),
+                           to_device(_ERFINV_GE5[i], x.device, torch.float32))
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -159,8 +162,7 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     samples, not bit for bit (``log1p`` rounds as torch rounds it)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
-    return torch.tensor(math.sqrt(2), dtype=torch.float32,
-                        device=key.device) * erf_inv(u)
+    return to_device(math.sqrt(2), key.device, torch.float32) * erf_inv(u)
 
 
 def _urem(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -178,8 +180,8 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     k1, k2 = split(key)
     higher = random_bits(k1, shape)
     lower = random_bits(k2, shape)
-    sp = torch.tensor(span, dtype=torch.int64, device=key.device)
-    mult = _urem(torch.tensor(1 << 16, dtype=torch.int64, device=key.device), sp)
+    sp = to_device(span, key.device, torch.int64)
+    mult = _urem(to_device(1 << 16, key.device, torch.int64), sp)
     mult = _urem(mul32(mult, mult), sp)
     off = mul32(_urem(higher, sp), mult) + _urem(lower, sp)
     off = _urem(off & M32, sp)

@@ -4,13 +4,18 @@ CPU: a span with no profiler opens no ``record_function`` and still adds
 its host time; under a profiler ``decode_assets`` of the stereo MP3
 fixture opens exactly the MP3 route's ranges, nested under one numbered
 ``decode.call``; ``to_device`` counts the copies and bytes it was handed;
-the profiler flag the span reads follows ``torch.profiler.profile``; and
-``cli decode --stats`` prints each family's decoded audio-seconds.
+the profiler flag the span reads follows ``torch.profiler.profile``;
+``cli decode --stats`` prints each family's decoded audio-seconds; and the
+live loop's counters count a known script exactly, its spans open under a
+profiler, every fetch it makes goes through ``to_host``, and the host
+values its commands and chance rolls put on the device go through
+``to_device``.
 
 On the card (marker ``cuda``; ``python -m pytest tests/test_torch_trace.py
 -m cuda --noconftest -q``): the ``sync`` counter equals torch's own count
-of synchronizing operations on the MP3 and FLAC routes, and the MP3 DSP
-spans read device time under a profiler and none without one.
+of synchronizing operations on the MP3 and FLAC routes and in the live
+loop under commands of every verb, and the MP3 DSP spans and the loop's
+``engine.render`` read device time under a profiler and none without one.
 """
 
 import os
@@ -25,7 +30,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from audio_decoder_tpu_torch import cli
 from audio_decoder_tpu_torch.codecs.registry import decode_assets
+from audio_decoder_tpu_torch.engine import commands as EC
+from audio_decoder_tpu_torch.engine import state as ES
 from audio_decoder_tpu_torch.io.assets import load_assets
+from audio_decoder_tpu_torch.runtime import loop as loop_mod
+from audio_decoder_tpu_torch.runtime.native import Sink
 from audio_decoder_tpu_torch.utils import trace
 
 from .synth import make_wav
@@ -157,6 +166,110 @@ def test_cli_decode_stats_prints_each_familys_audio_seconds(tmp_path, capsys):
     assert re.search(r"^h2d: \d+ calls, [\d,.]+ items", out, re.M)
 
 
+def _tone_loop(device="cpu"):
+    tone = (0.5 * np.sin(2 * np.pi * 440 * np.arange(44100) / 44100)).astype(np.float32)
+    st = ES.empty_state(tone[None, :, None], [44100], [1], out_channels=1, device=device)
+    return loop_mod.EngineLoop(st, ES.HostRegistry(["tone"]), 44100, 1,
+                               sink=Sink("default", 44100, 1, realtime=False))
+
+
+def _stat(name):
+    s = trace.TRACE.stats.get(name)
+    return (s.calls, s.items) if s is not None else (0, 0.0)
+
+
+def test_the_live_loops_counters_count_a_known_script(monkeypatch):
+    monkeypatch.setattr(loop_mod, "SPEC_DEPTH", 8)
+    fetched = []
+    real = loop_mod.to_host
+
+    def counting(t):
+        fetched.append(tuple(t.shape))
+        return real(t)
+
+    monkeypatch.setattr(loop_mod, "to_host", counting)
+    loop = _tone_loop()
+    assert loop.submit("load tone") and loop.submit("start -v tone")
+    loop.run_blocks(16)           # bursts 1, 2, 4, 8, 8: 23 rendered, 7 left over
+    assert loop.submit("velocity tone 0.5")
+    loop.run_blocks(1)            # the 7 go, one block of depth 1
+    assert _stat("engine.command") == (3, 0.0)
+    assert _stat("engine.block") == (17, 17 * loop_mod.PERIOD)
+    assert _stat("engine.burst") == (6, 24.0)
+    assert _stat("engine.discard") == (1, 7.0)
+    # one drain a call that brought commands, one render and fetch a burst
+    assert [_stat(n)[0] for n in ("engine.apply", "engine.render", "engine.fetch",
+                                  "engine.sink", "engine.status")] == [2, 6, 6, 17, 2]
+    # every burst and status snapshot reaches the host through to_host
+    P = loop_mod.PERIOD
+    assert fetched == [(P, 1), (2, P, 1), (4, P, 1), (8, P, 1), (8, P, 1), (5,),
+                       (P, 1), (5,)]
+
+
+#: commands of every verb but quit, each one the loop accepts
+EVERY_VERB = ["tc x b:240", "load a -t s:3000", "load b -t c:x", "load c -t b:300",
+              "group g -v a,b -t b:200", "seq a -p 4 -s 0,1 -c a:0.5 -j a:0.3",
+              "seq g -p 3 -s 0 -c a:0.7", "trem b -p 2 -d 0.5", "env c -p 3 -d 0.4",
+              "velocity c -0.5", "start -t x", "start -g g", "start -v c", "pause -v c",
+              "resume -v c", "pause -g g", "resume -g g", "stop -t x", "stop -v a",
+              "start -v a", "unload b"]
+
+
+def _three_track_loop(device="cpu"):
+    pcm = np.random.default_rng(0).uniform(-0.3, 0.3, (3, 44100, 2)).astype(np.float32)
+    st = ES.empty_state(pcm, [44100, 30000, 20000], [2, 2, 1], out_channels=2, device=device)
+    return loop_mod.EngineLoop(st, ES.HostRegistry(["a", "b", "c"]), 44100, 2,
+                               sink=Sink("default", 44100, 2, realtime=False))
+
+
+def test_the_engine_moves_host_values_through_the_trace_helpers(monkeypatch):
+    fetched, put = [], []
+    real_host, real_device = EC.to_host, EC.to_device
+
+    def fetching(t):
+        fetched.append(tuple(t.shape))
+        return real_host(t)
+
+    def putting(a, device, dtype=None):
+        t = real_device(a, device, dtype)
+        put.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(EC, "to_host", fetching)
+    monkeypatch.setattr(EC, "to_device", putting)
+    loop = _three_track_loop()
+    assert all(loop.submit(line) for line in EVERY_VERB)
+    loop.run_blocks(1)
+    assert not loop.errors
+    assert fetched and put  # the verbs read and set the device state through the helpers
+    fetched.clear(), put.clear()
+    h2d, rendered = _stat("h2d")[0], _stat("engine.burst")[1]
+    assert loop.submit("seq c -p 4 -s 0,1 -c a:0.5")
+    loop.run_blocks(16)
+    rendered = _stat("engine.burst")[1] - rendered
+    # its process slots and its tempo lane read; its kind and period set, then
+    # its three step rows put
+    assert fetched == [(ES.MAX_PROCS,), ()]
+    assert put == [(), (), (ES.MAX_STEPS,), (ES.MAX_STEPS,), (ES.MAX_STEPS,)]
+    # and two chance-roll bounds a block rendered
+    assert _stat("h2d")[0] - h2d == len(put) + 2 * rendered
+
+
+def test_the_live_loops_spans_open_under_a_profiler():
+    loop = _tone_loop()
+    loop.submit("load tone")
+    loop.submit("start -v tone")
+    loop.run_blocks(4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loop.submit("velocity tone 2.0")
+        loop.run_blocks(4)        # bursts 1, 2, then 1 of the next 4
+    names = [n for n, _, _ in _ranges(prof)]
+    assert names.count("engine.apply") == 1 and names.count("engine.status") == 1
+    assert [n for n in names if n.startswith("engine.render")] == [
+        "engine.render.1", "engine.render.2", "engine.render.4"]
+    assert names.count("engine.fetch") == 3 and names.count("engine.sink") == 4
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -240,3 +353,41 @@ def test_the_mp3_dsp_spans_read_device_time_under_a_profiler_only():
         ms = trace.TRACE.device_ms(name)
         assert ms is not None and ms > 0, name
     assert trace.TRACE.device_ms("mp3.walk") is None
+
+
+@pytest.mark.cuda
+def test_the_live_loops_syncs_are_all_counted_on_the_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    monkeypatch.setattr(loop_mod, "SPEC_DEPTH", 8)
+    warm = _three_track_loop("cuda")  # every kernel and burst depth warmed
+    assert all(warm.submit(line) for line in EVERY_VERB)
+    warm.run_blocks(40)
+    loop = _three_track_loop("cuda")
+    bursts = _stat("engine.burst")[0]
+
+    def play():
+        assert all(loop.submit(line) for line in EVERY_VERB)
+        loop.run_blocks(40)
+        assert loop.submit("velocity a 1.5") and loop.submit("stop -g g")
+        loop.run_blocks(12)
+
+    stacks, counted = _synchronizing_ops(play)
+    bursts = _stat("engine.burst")[0] - bursts
+    assert not warm.errors and not loop.errors
+
+    def counted_by_helpers(st):
+        return any(f.name in ("to_device", "to_host")
+                   and f.filename.endswith(os.path.join("utils", "trace.py")) for f in st)
+
+    missed = ["\n".join(traceback.format_list(st[-6:])) for st in stacks
+              if not counted_by_helpers(st)]
+    assert not missed, "syncs the counter misses:\n" + "\n---\n".join(missed)
+    assert counted == len(stacks)
+    # at least a fetch a burst, the two status snapshots and two chance-roll
+    # bounds a block rendered
+    assert counted >= bursts + 2 + 2 * 52
+    assert trace.TRACE.device_ms("engine.render") is None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        loop.run_blocks(8)
+    assert trace.TRACE.device_ms("engine.render") > 0
