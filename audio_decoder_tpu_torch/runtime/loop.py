@@ -26,6 +26,12 @@ fetch); the counters ``engine.block`` (blocks sunk, items = frames),
 ``engine.burst`` (refills, items = depth), ``engine.discard`` (speculated
 blocks thrown away, items = blocks) and ``engine.command`` (commands
 applied).  Every fetch goes through ``to_host``, so ``sync`` counts it.
+
+On a CUDA state each burst is one replay of a CUDA graph of
+``render_chain`` at the burst's depth (``engine/graphed.GraphedChain``,
+captured on a depth's first use, before the ``engine.render`` span
+opens), with the same bits as the eager chain; on every other device the
+loop issues the eager ops.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from ..engine import commands as EC
+from ..engine.graphed import GraphedChain
 from ..engine.render import render_block, render_chain
 from ..utils.trace import TRACE, span, to_host
 from .native import CmdRing, RawTerminal, Sink
@@ -96,6 +103,8 @@ class EngineLoop:
         #: command-dense input (piped scripts) renders one block per
         #: command instead of speculating 8 and discarding 7 each time
         self._spec_ramp = 1
+        #: the bursts' CUDA graphs, on a CUDA state only
+        self._graphs = GraphedChain() if state.device.type == "cuda" else None
 
     def submit(self, line: str) -> bool:
         """Parse + enqueue (parse errors surface immediately on the caller's
@@ -165,7 +174,7 @@ class EngineLoop:
                 self._spec_ramp = min(self._spec_ramp * 2, max(SPEC_DEPTH, 1))
                 TRACE.count("engine.burst", depth)
                 dev = self.state.device
-                if depth == 1:
+                if depth == 1 and self._graphs is None:
                     with span("engine.render", device=dev, label=f"engine.render.{depth}"):
                         blk, tail = render_block(
                             self.state, frames=PERIOD,
@@ -173,10 +182,18 @@ class EngineLoop:
                     with span("engine.fetch"):
                         self._spec.append([to_host(blk), tail])
                 else:
-                    with span("engine.render", device=dev, label=f"engine.render.{depth}"):
-                        blks, acts, poss, clocks = render_chain(
+                    if self._graphs is not None:
+                        # a capture on a miss happens here, outside the span
+                        chain = self._graphs.get(
                             self.state, frames=PERIOD,
                             out_channels=self.channels, depth=depth)
+                    else:
+                        def chain(st):
+                            return render_chain(st, frames=PERIOD,
+                                                out_channels=self.channels,
+                                                depth=depth)
+                    with span("engine.render", device=dev, label=f"engine.render.{depth}"):
+                        blks, acts, poss, clocks = chain(self.state)
                     with span("engine.fetch"):
                         fetched = to_host(blks)  # one device→host copy
                     for i in range(depth):

@@ -25,8 +25,12 @@ The functions follow ``jax/_src/prng.py`` and ``jax/_src/random.py``:
 * ``randint``: two draws from ``split(key)``, combined modulo the span in
   uint32 arithmetic, for int32 results.
 
-Every scalar or key made on the host goes to the device through
+Every key made on the host goes to the device through
 ``utils/trace.to_device``, so the ``sync`` counter sees each such copy.
+``uniform`` and ``normal`` take their bounds and constants by value, as
+float32 numbers carried in Python floats: a call puts nothing on the
+device, so the renderer's draws never wait for the host and a CUDA graph
+can capture them.
 """
 
 from __future__ import annotations
@@ -124,9 +128,10 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = to_device(minval, key.device, torch.float32)
-    hi = to_device(maxval, key.device, torch.float32)
-    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+    lo = np.float32(minval)
+    width = float(np.float32(maxval) - lo)  # the float32 difference
+    # _fma(floats, width, lo): the f64 product and sum, rounded once
+    return (floats.double() * width + float(lo)).float().clamp(min=float(lo))
 
 
 #: XLA's f32 ``erf_inv`` (Giles' polynomials), highest power first: for
@@ -137,6 +142,10 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                -0.00367342844, 0.00573950773, -0.0076224613,
                0.00943887047, 1.00167406, 2.83297682)
+#: the same coefficients and sqrt(2) rounded to float32 once, here
+_LT5_F32 = tuple(float(np.float32(c)) for c in _ERFINV_LT5)
+_GE5_F32 = tuple(float(np.float32(c)) for c in _ERFINV_GE5)
+_SQRT2_F32 = float(np.float32(math.sqrt(2)))
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -148,8 +157,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
 
     def coef(i):
-        return torch.where(lt, to_device(_ERFINV_LT5[i], x.device, torch.float32),
-                           to_device(_ERFINV_GE5[i], x.device, torch.float32))
+        return torch.where(lt, _LT5_F32[i], _GE5_F32[i])  # float32
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -162,7 +170,7 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     samples, not bit for bit (``log1p`` rounds as torch rounds it)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
-    return to_device(math.sqrt(2), key.device, torch.float32) * erf_inv(u)
+    return erf_inv(u) * _SQRT2_F32
 
 
 def _urem(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

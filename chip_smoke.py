@@ -102,10 +102,12 @@ Phases:
      all 64 voices used and active, every third voice reversed, gain
      1/64, blocks of 4,096 frames, chains of 64): ``render_chain`` must
      equal sequential ``render_block`` bit for bit, ``EngineLoop`` at
-     SPEC_DEPTH 8 must equal SPEC_DEPTH 0 over a command script, and a
-     checkpoint saved halfway must continue sample-exact; prints the
-     render's × real time (best of 5 chains after a warm one, one fetch a
-     chain), the live loop's × real time at PERIOD 128, the device
+     SPEC_DEPTH 8 must equal SPEC_DEPTH 0 over a command script, its
+     bursts replayed as CUDA graphs must equal the eager loop's bit for bit
+     (the captures and replays printed), and a checkpoint saved halfway
+     must continue sample-exact; prints the render's × real time (best of 5
+     chains after a warm one, one fetch a chain), the live loop's × real
+     time at PERIOD 128, graphed and eager, the device
      operations, kernel launch calls and device ms per block (torch
      profiler), the chain's peak device memory and the sink's kind;
  13. the multi-device path (``parallel/``) on a logical mesh of 8 shards over
@@ -190,9 +192,10 @@ the quick check of the cross-card path on a machine with several cards.
 With ``--phase export`` it builds, runs the main path and phase 14 alone.
 With ``--phase bench`` it builds and runs the bench alone.
 With ``--phase hosthuff`` it builds and runs phase 15 alone.
+With ``--phase engine`` it builds and runs phase 12 alone.
 
 Usage:  python3 chip_smoke.py [--seed N] [--profile]
-                              [--phase all|multichip|export|bench|hosthuff]
+                              [--phase all|multichip|export|bench|hosthuff|engine]
 """
 
 from __future__ import annotations
@@ -2113,9 +2116,12 @@ ENGINE_LOOP_SCRIPT = [("load t0 -t s:3000", 0), ("seq t0 -p 4 -s 0,1,3 -c a:0.7 
                ("resume -g g", 90), ("env t0 -p 2 -d 0.8", 64), ("stop -v t1", 50)]
 
 
-def _loop_run(dev, depth: int, checkpoint: str | None = None):
+def _loop_run(dev, depth: int, checkpoint: str | None = None,
+              graphed: bool = True):
     """The loop over the render configuration at ``SPEC_DEPTH`` ``depth``:
-    the collected blocks (and a checkpoint halfway, if asked)."""
+    the collected blocks (and a checkpoint halfway, if asked).  On the card
+    its bursts replay CUDA graphs; ``graphed=False`` issues the eager ops,
+    as the loop does on every other device."""
     from audio_decoder_tpu_torch.engine.checkpoint import save_state
     from audio_decoder_tpu_torch.runtime import loop as LM
     from audio_decoder_tpu_torch.runtime.native import Sink
@@ -2125,6 +2131,8 @@ def _loop_run(dev, depth: int, checkpoint: str | None = None):
         st, reg = render_config(dev)
         loop = LM.EngineLoop(st, reg, RATE, 2,
                              sink=Sink("default", RATE, 2, realtime=False))
+        if not graphed:
+            loop._graphs = None
         out = []
         for i, (line, n) in enumerate(ENGINE_LOOP_SCRIPT):
             if not loop.submit(line):
@@ -2206,11 +2214,32 @@ def phase_engine_render(dev, card: str, work: str) -> dict:
     n_period, api_period, ms_period = _launches_per_call(
         lambda: ER.render_block(st, frames=LM.PERIOD, out_channels=2), 3)
 
+    from audio_decoder_tpu_torch.utils.trace import TRACE
+
+    def graph_counts():
+        return tuple((s.calls, s.items) if s is not None else (0, 0.0) for s in (
+            TRACE.stats.get("engine.graph_capture"), TRACE.stats.get("engine.graph_replay")))
+
+    (cap0, _), (rep0, blk0) = graph_counts()
     base_audio = _loop_run(dev, 0)
     ck = os.path.join(work, "engine_ckpt")
     spec_audio, ck_at = _loop_run(dev, 8, checkpoint=ck)
     if not np.array_equal(spec_audio, base_audio):
         fail("EngineLoop at SPEC_DEPTH 8 differs from SPEC_DEPTH 0 on the card")
+    (cap1, _), (rep1, blk1) = graph_counts()
+    eager_audio = _loop_run(dev, 8, graphed=False)
+    if graph_counts() != ((cap1, 0.0), (rep1, blk1)):
+        fail("the eager loop captured or replayed a graph")
+    if not np.array_equal(spec_audio.view(np.int32), eager_audio.view(np.int32)):
+        fail("the graphed EngineLoop differs from the eager loop on the card")
+    if cap1 - cap0 != 5 or blk1 - blk0 < base_audio.shape[0] // LM.PERIOD:
+        fail(f"the graphed loops made {cap1 - cap0} captures (want 5: depth 1 "
+             f"at SPEC_DEPTH 0, depths 1, 2, 4, 8 at 8) and replayed "
+             f"{blk1 - blk0:.0f} blocks")
+    log(f"engine: the graphed EngineLoop equals the eager loop bit for bit "
+        f"over {eager_audio.shape[0]} frames at SPEC_DEPTH 8; the two graphed "
+        f"loops made {cap1 - cap0} captures and {rep1 - rep0} replays "
+        f"rendering {blk1 - blk0:.0f} blocks")
     st2, reg2 = load_state(ck, device=dev)
     loop2 = LM.EngineLoop(st2, reg2, RATE, 2, sink=Sink("default", RATE, 2,
                                                          realtime=False))
@@ -2235,10 +2264,20 @@ def phase_engine_render(dev, card: str, work: str) -> dict:
     t0 = time.perf_counter()
     loop.run_blocks(n_live)
     loop_x = n_live * LM.PERIOD / RATE / (time.perf_counter() - t0)
+    st, reg = render_config(dev)
+    loop = LM.EngineLoop(st, reg, RATE, 2, sink=Sink("default", RATE, 2,
+                                                      realtime=False))
+    loop._graphs = None
+    loop.run_blocks(64)
+    n_eager = 512
+    t0 = time.perf_counter()
+    loop.run_blocks(n_eager)
+    eager_x = n_eager * LM.PERIOD / RATE / (time.perf_counter() - t0)
     sink = Sink("default", RATE, 2)
     kind = sink.mode
     sink.close()
     out = dict(render_x=render_x, render_x_runs=rates, loop_x=loop_x,
+               eager_loop_x=eager_x,
                ops_per_block=n_block, launch_calls_per_block=api_block,
                device_ms_per_block=ms_block, ops_per_period=n_period,
                launch_calls_per_period=api_period,
@@ -2246,7 +2285,8 @@ def phase_engine_render(dev, card: str, work: str) -> dict:
     log(f"engine: render {render_x:.3f}x real time (best of 5 chains of {D} x "
         f"{F} frames, 64 voices; runs {[round(r, 3) for r in rates]}); live "
         f"loop {loop_x:.3f}x real time at PERIOD {LM.PERIOD} (SPEC_DEPTH "
-        f"{LM.SPEC_DEPTH}, {n_live} blocks); per block at {F} frames "
+        f"{LM.SPEC_DEPTH}, {n_live} blocks; eager ops {eager_x:.3f}x over "
+        f"{n_eager}); per block at {F} frames "
         f"{n_block:.1f} device operations, {api_block:.1f} kernel launch "
         f"calls, {ms_block:.3f} device ms; at {LM.PERIOD} frames "
         f"{n_period:.1f}, {api_period:.1f}, {ms_period:.3f} ms; peak device "
@@ -3135,18 +3175,32 @@ def hosthuff_only() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def engine_only() -> None:
+    """``--phase engine``: the build, then ``phase_engine_render`` alone."""
+    card = phase_environment()
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="adt_smoke_work_") as work:
+        out = phase_engine_render(torch.device("cuda"), card, work)
+    print(json.dumps({"engine": out}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--profile", action="store_true",
                     help="profile one FLAC decode after the other phases")
     ap.add_argument("--phase", choices=("all", "multichip", "export", "bench",
-                                        "hosthuff"),
+                                        "hosthuff", "engine"),
                     default="all", help="multichip: the build and the "
                     "multi-device phase alone; export: the build, the main "
                     "path and the FLAC export phase; bench: the build and "
                     "the port's bench; hosthuff: the build and the "
-                    "host-Huffman MP3 route")
+                    "host-Huffman MP3 route; engine: the build and the "
+                    "render configuration's phase")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)  # the numpy writers of tests/
     if args.phase == "multichip":
@@ -3160,6 +3214,9 @@ def main() -> None:
         return
     if args.phase == "hosthuff":
         hosthuff_only()
+        return
+    if args.phase == "engine":
+        engine_only()
         return
 
     card = phase_environment()

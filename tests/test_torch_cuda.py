@@ -1344,6 +1344,143 @@ def test_engine_loop_cuda_speculation_bit_identical(cuda_device, monkeypatch):
     assert np.array_equal(run(8), base)
 
 
+#: commands of every verb but quit over ``engine_case``'s registry, each
+#: with the blocks rendered after it (16 or more reach burst depth 8)
+GRAPH_SCRIPT = [("seq t1 -p 4 -s 0,2 -c a:0.5 -j a:0.3", 5), ("velocity t0 -0.7", 9),
+                ("pause -g g", 3), ("resume -g g", 17), ("tc beat2 b:300", 0),
+                ("trem t3 -p 2 -d 0.4", 11), ("env t1 -p 3 -d 0.5", 8),
+                ("stop -v t1", 4), ("start -v t1", 16), ("pause -v t0", 2),
+                ("resume -v t0", 6), ("stop -t beat", 6), ("start -t beat", 7),
+                ("unload t3", 10), ("load t3 -t c:beat2", 0), ("start -v t3", 12),
+                ("group g2 -v t0,t1 -t b:120", 0), ("start -g g2", 20),
+                ("stop -g g2", 1), ("start -g g2", 33)]
+
+
+def _graph_stat(name):
+    from audio_decoder_tpu_torch.utils.trace import TRACE
+
+    s = TRACE.stats.get(name)
+    return (s.calls, s.items) if s is not None else (0, 0.0)
+
+
+def _engine_loop(dev, graphed=True, seed=5):
+    from audio_decoder_tpu_torch.runtime import loop as LM
+    from audio_decoder_tpu_torch.runtime.native import Sink
+
+    st, reg = engine_case(dev, seed=seed)
+    loop = LM.EngineLoop(st, reg, 44100, 2, sink=Sink("default", 44100, 2, realtime=False))
+    assert (loop._graphs is not None) == (dev.type == "cuda")
+    if not graphed:
+        loop._graphs = None  # the eager ops, as on every other device
+    return loop
+
+
+def _play(loop, script=GRAPH_SCRIPT):
+    out = [loop.run_blocks(6, collect=True)]
+    for line, n in script:
+        assert loop.submit(line), (line, loop.errors)
+        out.append(loop.run_blocks(n, collect=True))
+    assert not loop.errors
+    return np.concatenate(out)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def test_engine_loop_cuda_graphed_bit_identical_to_eager(cuda_device, monkeypatch):
+    """The graphed loop against the eager loop on the card at SPEC_DEPTH 8
+    over commands of every verb: every block and the end state bit for bit,
+    every burst a replay, every depth of the ramp captured once."""
+    from audio_decoder_tpu_torch.runtime import loop as LM
+
+    monkeypatch.setattr(LM, "SPEC_DEPTH", 8)
+    eager = _engine_loop(cuda_device, graphed=False)
+    want = _play(eager)
+    captures, replays = _graph_stat("engine.graph_capture"), _graph_stat("engine.graph_replay")
+    bursts = _graph_stat("engine.burst")
+    graphed = _engine_loop(cuda_device)
+    got = _play(graphed)
+    assert np.abs(want).max() > 0 and got.shape == want.shape
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    for name in ("v_active", "v_pos", "clock"):
+        assert _same_bits(getattr(graphed.state, name), getattr(eager.state, name)), name
+    assert sorted(k[0] for k in graphed._graphs._graphs) == [1, 2, 4, 8]
+    assert _graph_stat("engine.graph_capture")[0] - captures[0] == 4
+    rendered = _graph_stat("engine.burst")[1] - bursts[1]
+    assert _graph_stat("engine.graph_replay")[1] - replays[1] == rendered > len(want) // 128
+
+
+def test_engine_loop_cuda_states_keep_their_values_after_later_replays(cuda_device, monkeypatch):
+    """A state the graphed loop hands out (committed or speculated) aliases
+    nothing a later replay rewrites: it keeps its values over bursts of
+    every depth."""
+    from audio_decoder_tpu_torch.engine import graphed as G
+    from audio_decoder_tpu_torch.runtime import loop as LM
+
+    monkeypatch.setattr(LM, "SPEC_DEPTH", 8)
+    loop = _engine_loop(cuda_device)
+    kept = []
+
+    def keep():
+        for st in [loop.state] + [tail for _, tail in loop._spec]:
+            kept.append((st, {n: getattr(st, n).clone() for n in G.COPIED + G.IN_PLACE}))
+
+    for n in (1, 2, 4, 9, 20):        # ends inside bursts of 1, 2, 4 and 8
+        loop.run_blocks(n)
+        keep()
+    assert loop.submit("velocity t2 0.6")
+    loop.run_blocks(40)
+    assert loop.submit("stop -v t0")
+    loop.run_blocks(3)
+    assert not loop.errors and len(kept) > 10
+    for st, values in kept:
+        for name, value in values.items():
+            assert _same_bits(getattr(st, name), value), name
+
+
+def test_engine_loop_cuda_commands_between_bursts_capture_nothing(cuda_device, monkeypatch):
+    from audio_decoder_tpu_torch.runtime import loop as LM
+
+    monkeypatch.setattr(LM, "SPEC_DEPTH", 8)
+    loop = _engine_loop(cuda_device)
+    loop.run_blocks(15)               # bursts 1, 2, 4, 8: every depth captured
+    captures, replays = _graph_stat("engine.graph_capture"), _graph_stat("engine.graph_replay")
+    _play(loop)
+    assert _graph_stat("engine.graph_capture") == captures
+    assert _graph_stat("engine.graph_replay")[0] - replays[0] > len(GRAPH_SCRIPT)
+
+
+def test_graphed_chain_cuda_captures_anew_for_another_store(cuda_device):
+    """A state over another ``tracks`` tensor (other samples) gets its own
+    graph, which renders that store: equal to the eager chain bit for bit."""
+    from audio_decoder_tpu_torch.engine import graphed as G
+    from audio_decoder_tpu_torch.engine import render as ER
+
+    st, _ = engine_case(cuda_device, seed=6)
+    chain = G.GraphedChain()
+    captures = _graph_stat("engine.graph_capture")[0]
+    first = chain.get(st, frames=128, out_channels=2, depth=4)
+    moved = dataclasses.replace(st, v_pos=st.v_pos + 3.0)
+    assert chain.get(moved, frames=128, out_channels=2, depth=4) is first
+    for s in (st, moved):
+        got = first(s)
+        want = ER.render_chain(s, frames=128, out_channels=2, depth=4)
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+    other = dataclasses.replace(st, tracks=st.tracks.flip(0).contiguous() * 0.5)
+    second = chain.get(other, frames=128, out_channels=2, depth=4)
+    assert second is not first
+    assert _graph_stat("engine.graph_capture")[0] - captures == 2
+    got = second(other)
+    want = ER.render_chain(other, frames=128, out_channels=2, depth=4)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    assert not _same_bits(got[0], first(st)[0])
+
+
 def test_cli_render_cuda_within_one_lsb_of_cpu(cuda_device, tmp_path):
     from audio_decoder_tpu_torch import cli
 

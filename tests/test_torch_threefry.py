@@ -4,10 +4,14 @@ The renderer's chance rolls and jitter seed and the encoder's dither are
 ``jax.random`` draws in the JAX package; the port reproduces them with its
 own threefry.  Every comparison here is exact, over several seeds, shapes
 (odd sizes and 0-d included) and fold-in data (negative int32 clocks
-included), on the CPU.  The host xoroshiro128+ (utils/rng.py, a verbatim
+included), on the CPU.  ``uniform`` and ``normal`` put nothing on the
+device and equal the same draws with their bounds and constants as float32
+tensors.  The host xoroshiro128+ (utils/rng.py, a verbatim
 copy) is held to tests/test_rng.py's vectors and to the JAX package's
 streams.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ import torch
 from audio_decoder_tpu.utils import rng as JRNG
 from audio_decoder_tpu_torch.utils import rng as PRNG
 from audio_decoder_tpu_torch.utils import threefry as TF
+from audio_decoder_tpu_torch.utils import trace
 
 from .test_rng import _ref_x128p_stream
 
@@ -100,6 +105,59 @@ def test_the_renderers_draws(clock):
     pu = TF.uniform(TF.fold_in(pk, torch.tensor(clock, dtype=torch.int32)),
                     (96, 257)).numpy()
     np.testing.assert_array_equal(ju.view(np.uint32), pu.view(np.uint32))
+
+
+#: every (minval, maxval) the port draws over: the render's, ``normal``'s,
+#: the render benchmark's positions, and two more
+RANGES = [(0.0, 1.0), (float(np.nextafter(np.float32(-1.0), np.float32(0.0))), 1.0),
+          (1000.0, 87200.0), (-3.3, 7.1), (0.25, 0.5)]
+
+
+def _h2d():
+    s = trace.TRACE.stats.get("h2d")
+    return (s.calls, s.items) if s is not None else (0, 0.0)
+
+
+def _uniform_with_tensor_bounds(key, shape, lo, hi):
+    """``uniform`` with its bounds as float32 tensors beside the draw."""
+    bits = TF.random_bits(key, shape)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = torch.tensor(lo, dtype=torch.float32), torch.tensor(hi, dtype=torch.float32)
+    return torch.maximum(lo, TF._fma(floats, hi - lo, lo))
+
+
+@pytest.mark.parametrize("lo,hi", RANGES)
+def test_uniform_puts_nothing_and_equals_the_draw_with_tensor_bounds(lo, hi):
+    key = TF.prng_key(0xB1A57, device="cpu")
+    before = _h2d()
+    got = TF.uniform(key, (4097,), lo, hi)
+    assert _h2d() == before
+    want = _uniform_with_tensor_bounds(key, (4097,), lo, hi)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_normal_puts_nothing_and_equals_the_draw_with_tensor_constants():
+    """``normal`` against the same draw with ``sqrt(2)`` and every
+    ``erf_inv`` coefficient as a float32 tensor: bit for bit."""
+    key = TF.prng_key(11, device="cpu")
+    before = _h2d()
+    got = TF.normal(key, (8, 4410, 2))
+    assert _h2d() == before
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    x = _uniform_with_tensor_bounds(key, (8, 4410, 2), RANGES[1][0], 1.0)
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt, f32(TF._ERFINV_LT5[0]), f32(TF._ERFINV_GE5[0]))
+    for a, b in zip(TF._ERFINV_LT5[1:], TF._ERFINV_GE5[1:]):
+        p = TF._fma(p, t, torch.where(lt, f32(a), f32(b)))
+    want = f32(math.sqrt(2)) * torch.where(x.abs() == 1.0, x * math.inf, p * x)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_mul32_wraps_like_uint32():
