@@ -14,8 +14,6 @@ raises without a card); ``--device`` names the ALSA device.
 Subcommands:
   repl      — interactive engine (reads command lines from stdin)
   decode    — decode a folder, print per-file results
-  bench     — run the throughput benchmark (same as python -m
-              audio_decoder_tpu_torch.bench)
   render    — offline-render a command script to a WAV file
   export    — decode a folder and re-encode every file
   transcode — decode one file and re-encode it
@@ -120,13 +118,6 @@ def cmd_decode(args) -> int:
                   f"p95 {p95*1e3:.1f} ms ({len(vals)} files)")
         print("-- stage stats (items = decoded audio-seconds) --")
         print(TRACE.report())
-    return 0
-
-
-def cmd_bench(args) -> int:
-    from . import bench
-
-    bench.main(device=args.platform)
     return 0
 
 
@@ -327,9 +318,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     pd.add_argument("--stats", action="store_true",
                     help="print per-stage timers and audio-sec/sec rates")
     pd.set_defaults(fn=cmd_decode)
-
-    pb = sub.add_parser("bench", help="throughput benchmark")
-    pb.set_defaults(fn=cmd_bench)
 
     pi = sub.add_parser("inspect", help="byte/sync navigator (≙ skiparound)")
     pi.add_argument("file")

@@ -44,13 +44,7 @@ Phases:
      K3 launched once per chunk, K4 and R1 as often;
   7. rates: after one warm run, 3 timed runs of ``decode_assets`` on each
      of the WAV + MP3 folder, 16 FLAC files, and 16 WAV + 16 MP3 + 16 FLAC
-     (decoded audio-seconds per second; informational); then the port's
-     bench, ``audio_decoder_tpu_torch.bench.main(device="cuda")`` in this
-     process at bench.py's sizes (16 WAV + 16 MP3 + 16 FLAC of 10 s,
-     ``BENCH_MEASURE_S`` 5) with its own gates: its JSON line is printed
-     here and every key (the headline and the six extras) must be there
-     and above 0; its launches are counted alone and K1-K4 and R1 must
-     each have launched;
+     (decoded audio-seconds per second; informational);
   8. the other families: 16 copies each of 10 s 44.1 kHz stereo AIFF
      24-bit, AIFF-C sowt 16-bit, AU µ-law, CAF f32 LE, WAV IMA ADPCM and
      WAV MS ADPCM (block_align 2048) and AIFF-C ima4, 8 copies each of a
@@ -179,10 +173,9 @@ Every phase is fatal.  The kernels line gives each kernel's launches on
 the main path, the streams (``streams``), the Layer I/II path
 (``layer12``), the engine's decode (``engine``), the sharded runs
 (``multichip``), the FLAC export (``flac_encode``: the export's decode,
-the decode of the written files, the transcodes) and the bench
-(``bench``: one ``bench.main`` run) and the host-Huffman MP3 route
-(``mp3_hosthuff``); K5 (``window_add_spmd``)
-has its own entry.  The last line of standard output is
+the decode of the written files, the transcodes) and the host-Huffman
+MP3 route (``mp3_hosthuff``); K5 (``window_add_spmd``) has its own
+entry.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
 its power limit, and the line before that lists the kernels.
 
@@ -190,12 +183,11 @@ With ``--phase multichip`` it builds, writes the main path's WAV files
 and a seeded Layer II stream, and runs phase 13 alone (about a minute):
 the quick check of the cross-card path on a machine with several cards.
 With ``--phase export`` it builds, runs the main path and phase 14 alone.
-With ``--phase bench`` it builds and runs the bench alone.
 With ``--phase hosthuff`` it builds and runs phase 15 alone.
 With ``--phase engine`` it builds and runs phase 12 alone.
 
 Usage:  python3 chip_smoke.py [--seed N] [--profile]
-                              [--phase all|multichip|export|bench|hosthuff|engine]
+                              [--phase all|multichip|export|hosthuff|engine]
 """
 
 from __future__ import annotations
@@ -996,52 +988,6 @@ def phase_rate(folder: str, flac_folder: str, card: str) -> None:
     if len(three) != N_WAV + N_MP3 + N_FLAC:
         fail(f"the three-family batch has {len(three)} files")
     _rate("decode_assets of 16 WAV + 16 MP3 + 16 FLAC", three, card)
-
-
-#: the keys of the bench's line that must be there and above 0
-BENCH_KEYS = ("value", "vs_baseline", "iters", "flac_e2e_x", "render_x",
-              "p50_file_latency_ms", "decode_throughput_mixed3",
-              "wav_e2e_music_x", "wav_e2e_noise_x")
-#: the bench's sizes: bench.py's own, with a 5 s measuring budget
-BENCH_ENV = {"BENCH_N_WAV": str(N_WAV), "BENCH_N_MP3": str(N_MP3),
-             "BENCH_SECONDS": str(SECONDS), "BENCH_MEASURE_S": "5"}
-
-
-def phase_bench(card: str) -> dict:
-    """The port's bench (``audio_decoder_tpu_torch/bench.py``) in this
-    process on the card at bench.py's sizes (16 WAV + 16 MP3 + 16 FLAC of
-    10 s), its gates included; its line printed here, each key checked.
-    Every launch count is set to 0 just before it and read just after:
-    K1-K4 and R1 must each have launched."""
-    from audio_decoder_tpu_torch import bench
-
-    saved = {k: os.environ.get(k) for k in (*BENCH_ENV, "BENCH_SKIP_EXTRAS")}
-    os.environ.update(BENCH_ENV)
-    os.environ.pop("BENCH_SKIP_EXTRAS", None)
-    line = io.StringIO()
-    t0 = time.perf_counter()
-    _zero_kernel_counts()
-    try:
-        with contextlib.redirect_stdout(line):
-            result = bench.main(device="cuda")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    launches = _kernel_counts()
-    log(f"bench line: {line.getvalue().strip().splitlines()[-1]}  [{card}]")
-    log(f"bench: {time.perf_counter() - t0:.3f} s; launches {launches}")
-    bad = [k for k in BENCH_KEYS
-           if not (isinstance(result.get(k), (int, float)) and result[k] > 0)]
-    if bad or result.get("metric") != "decode_throughput_mixed":
-        fail(f"the bench's line lacks {bad or 'its metric'}: {result}")
-    for k in ("mp3_entropy_scan", "mp3_polyphase_synthesis", "window_add",
-              "window_add2", "flac_rice"):
-        if launches[k] <= 0:
-            fail(f"kernel {k} was not launched by the bench")
-    return launches
 
 
 def phase_profile(flac_folder: str, card: str) -> None:
@@ -3151,18 +3097,6 @@ def export_only(seed: int) -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def bench_only() -> None:
-    """``--phase bench``: the build, then ``phase_bench`` alone."""
-    card = phase_environment()
-    phase_build()
-    launches = phase_bench(card)
-    print(json.dumps({"bench": launches}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-
-
 def hosthuff_only() -> None:
     """``--phase hosthuff``: the build, then ``phase_mp3_hosthuff`` alone."""
     card = phase_environment()
@@ -3193,12 +3127,11 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--profile", action="store_true",
                     help="profile one FLAC decode after the other phases")
-    ap.add_argument("--phase", choices=("all", "multichip", "export", "bench",
+    ap.add_argument("--phase", choices=("all", "multichip", "export",
                                         "hosthuff", "engine"),
                     default="all", help="multichip: the build and the "
                     "multi-device phase alone; export: the build, the main "
-                    "path and the FLAC export phase; bench: the build and "
-                    "the port's bench; hosthuff: the build and the "
+                    "path and the FLAC export phase; hosthuff: the build and the "
                     "host-Huffman MP3 route; engine: the build and the "
                     "render configuration's phase")
     args = ap.parse_args()
@@ -3208,9 +3141,6 @@ def main() -> None:
         return
     if args.phase == "export":
         export_only(args.seed)
-        return
-    if args.phase == "bench":
-        bench_only()
         return
     if args.phase == "hosthuff":
         hosthuff_only()
@@ -3233,7 +3163,6 @@ def main() -> None:
         launches.update(phase_flac_path(flac_folder, good, dev))
         phase_flac_chunked(dev)
         phase_rate(folder, flac_folder, card)
-        bench_launches = phase_bench(card)
         src = write_families_folder(fam_folder, args.seed)
         k2_families = phase_families(fam_folder, src, dev)
         k2_shapes = phase_families_k2(dev, src)
@@ -3292,8 +3221,6 @@ def main() -> None:
         # of the written files and of the two transcodes, each run counted
         # alone, and the kernel on each call's inputs there
         k["flac_encode"] = encode[k["name"]]
-        # the port's bench: its launches in one bench.main run, counted alone
-        k["bench"] = bench_launches[k["name"]]
         # the host-Huffman MP3 route: its launches in one
         # decode_group_hosthuff run, counted alone, and the kernel on each
         # of its calls' inputs
@@ -3311,7 +3238,6 @@ def main() -> None:
         calls=mesh_launches["flac"]["window_add_spmd"],
         k3_launches=mesh_launches["flac"]["window_add"],
         multichip=dict(shapes=mesh_shapes.get("window_add_spmd", [])),
-        bench=bench_launches["window_add_spmd_kernel"],
         mp3_hosthuff=hosthuff_launches["window_add_spmd_kernel"], **k5))
     print(json.dumps({"kernels": kernels}))
     print(card)

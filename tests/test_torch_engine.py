@@ -21,6 +21,8 @@ input state.
 import dataclasses
 import json
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,7 @@ from audio_decoder_tpu_torch.engine import checkpoint as PK
 from audio_decoder_tpu_torch.engine import commands as PC
 from audio_decoder_tpu_torch.engine import render as PR
 from audio_decoder_tpu_torch.engine import state as PS
+from audio_decoder_tpu_torch.utils import threefry as TF
 
 CPU = "cpu"
 RATE = 1000  # the JAX tests' tiny rate
@@ -428,6 +431,58 @@ def test_render_chain_bit_identical_to_sequential(rng):
         want = (seq_blocks[i + 1] if i + 1 < D else PR.render_block(
             seq_states[-1], frames=F, out_channels=2)[0])
         assert torch.equal(nb, want)
+
+
+def test_render_chain_of_64_voices_matches_jax():
+    """The root bench.py's render state (bench.py:642-661) at 8 stereo
+    tracks of 0.1 s: tracks from threefry key 11 (× 0.1), all 64 voices
+    used and active, positions from key 12 over (1000, S - 1000),
+    velocities 0.25-2 from key 13 with every third reversed, gain 1/64.
+    The port's depth-2 chain is held to JAX's ``render_block`` calls on the
+    same tracks within ``MAX_ABS``, with positions, active flags and clocks
+    equal.  JAX's render_block rounds the cursor's multiply-add once (an
+    FMA), as the port does, but XLA:CPU compiles render_chain's scan body at
+    depth 2 without the FMA, so JAX's own chain is held to the port's
+    positions within 1 ulp a block (the cursor carries the difference from
+    block to block)."""
+    T, S, V = 8, 4410, PS.MAX_VOICES
+    tracks = TF.normal(TF.prng_key(11, device=CPU), (T, S, 2)) * 0.1
+    st = PS.empty_state(tracks, [S] * T, [2] * T, out_channels=2, device=CPU)
+    pos = TF.uniform(TF.prng_key(12, device=CPU), (V,), 1000.0, S - 1000.0)
+    sign = torch.where(torch.arange(V) % 3 == 0, -1.0, 1.0)
+    vel = sign * (0.25 + 1.75 * TF.uniform(TF.prng_key(13, device=CPU), (V,)))
+    used = torch.ones((V,), dtype=torch.bool)
+    st = dataclasses.replace(
+        st, v_used=used, v_active=used,
+        v_track=torch.arange(V, dtype=torch.int32) % T, v_pos=pos, v_vel=vel,
+        v_gain=torch.full((V,), 1.0 / 64, dtype=torch.float32))
+
+    jst = JS.empty_state(tracks.numpy(), [S] * T, [2] * T, out_channels=2)
+    jpos = jax.random.uniform(jax.random.PRNGKey(12), (V,),
+                              minval=1000.0, maxval=S - 1000.0)
+    jvel = jnp.where(jnp.arange(V) % 3 == 0, -1.0, 1.0) * (
+        0.25 + 1.75 * jax.random.uniform(jax.random.PRNGKey(13), (V,)))
+    jst = dataclasses.replace(
+        jst, v_used=jnp.ones((V,), bool), v_active=jnp.ones((V,), bool),
+        v_track=jnp.arange(V, dtype=jnp.int32) % T,
+        v_pos=jpos.astype(jnp.float32), v_vel=jvel.astype(jnp.float32),
+        v_gain=jnp.full((V,), 1.0 / 64, jnp.float32))
+
+    blks, acts, poss, clocks = PR.render_chain(st, frames=256, out_channels=2,
+                                               depth=2)
+    assert float(blks.abs().max()) > 0
+    cur = jst
+    for i in range(2):
+        jblk, cur = JR.render_block(cur, frames=256, out_channels=2)
+        assert np.abs(blks[i].numpy() - np.asarray(jblk)).max() <= MAX_ABS
+        np.testing.assert_array_equal(acts[i].numpy(), np.asarray(cur.v_active))
+        np.testing.assert_array_equal(poss[i].numpy(), np.asarray(cur.v_pos))
+        np.testing.assert_array_equal(clocks[i].numpy(), np.asarray(cur.clock))
+    jposs = np.asarray(JR.render_chain(jst, frames=256, out_channels=2,
+                                       depth=2)[2])
+    ulps = np.abs(poss.numpy().view(np.int32).astype(np.int64)
+                  - jposs.view(np.int32).astype(np.int64))
+    assert (ulps <= np.arange(1, 3)[:, None]).all()
 
 
 def test_render_passes_every_other_tensor_through(rng):
