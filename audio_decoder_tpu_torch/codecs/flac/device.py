@@ -15,8 +15,10 @@ interleaved ``[B, smax * channels]`` float32 PCM on the tensors' device:
    value array through K4 (ops/window_add.window_add2), plus the
    host-decoded quotient outliers.
 4. **Predictor reconstruction** — every subframe is an integer LPC
-   (FIXED = spec coefficients with shift 0, VERBATIM = order 0), one
-   sample step at a time over all subframes.
+   (FIXED = spec coefficients with shift 0, VERBATIM = order 0).  On the
+   card one launch of csrc/flac_predict.cu (ops/flac_predict) walks every
+   subframe; on the CPU the plain twin ``_predict`` steps one sample at a
+   time over all subframes.
 5. **Stereo decorrelation and PCM assembly** — per-frame channel solves,
    then K3 (ops/window_add.window_add) places every frame in its file's
    row.
@@ -41,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.bytes import peek32
+from ...ops.flac_predict import predict_cuda
 from ...ops.rice_scan import rice_scan_cuda
 from ...ops.window_add import window_add, window_add2
 from ...utils.trace import span
@@ -188,6 +191,20 @@ def _predict(vals, kind, order, shift, wasted, coeffs, nmax: int):
     return out << wasted[:, None]
 
 
+def _predict_lanes(vals, kind, order, shift, wasted, coeffs, nmax: int):
+    """Every subframe's samples (i32 ``[Ls, nmax]``) from its warm-up
+    samples and residuals: for CUDA tensors one launch of
+    csrc/flac_predict.cu (ops/flac_predict.predict_cuda) on the view
+    ``vals[:, :nmax]``, for CPU tensors the plain twin ``_predict``; any
+    other device raises."""
+    dev = vals.device
+    if dev.type == "cuda":
+        return predict_cuda(vals[:, :nmax], kind, order, shift, wasted, coeffs)
+    if dev.type != "cpu":
+        raise ValueError(f"predict: unsupported device {dev}")
+    return _predict(vals, kind, order, shift, wasted, coeffs, nmax)
+
+
 def _stereo(sub_pcm, fr_mode, channels: int):
     """Undo inter-channel decorrelation: ``[F, C, N]`` coded channels →
     ``[F, C, N]`` L/R samples, selected per frame mode (0 independent,
@@ -270,9 +287,9 @@ def _frame_windows(vals, sub_kind, sub_order, sub_shift, sub_wasted,
     interleaved output."""
     dev = vals.device
     F = fr_file.shape[0]
-    with span("flac.predict"):
-        s = _predict(vals, sub_kind, sub_order, sub_shift, sub_wasted,
-                     sub_coeffs, nmax)
+    with span("flac.predict", device=dev):
+        s = _predict_lanes(vals, sub_kind, sub_order, sub_shift, sub_wasted,
+                           sub_coeffs, nmax)
     with span("flac.stereo"):
         sub_pcm = _stereo(s.reshape(F, channels, nmax), fr_mode, channels)
         pcm_f = sub_pcm.to(torch.float32) * fr_scale[:, None, None]

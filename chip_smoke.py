@@ -7,16 +7,18 @@ Phases:
 
   1. environment: torch, CUDA, nvcc and the card (fails without CUDA);
   2. build, all libraries at once: the entropy-scan, synthesis,
-     window-add (K3's window_add.cu, K4's window_add2.cu) and FLAC rice
-     scan (flac_rice.cu) kernels (nvcc, sm_90a) and the host MP3 and FLAC
-     front-ends (g++);
+     window-add (K3's window_add.cu, K4's window_add2.cu), FLAC rice
+     scan (flac_rice.cu) and FLAC predictor (flac_predict.cu) kernels
+     (nvcc, sm_90a) and the host MP3 and FLAC front-ends (g++);
   3. kernels against their plain twins on the card: the entropy scan (K1)
      must match exactly, the synthesis (K2) within atol 1e-4 / rtol 1e-5
      (the sums run in another order), at the WAV + MP3 path's shapes; the
-     window-add kernels K4 (FLAC values) and K3 (FLAC PCM) and the rice
+     window-add kernels K4 (FLAC values) and K3 (FLAC PCM), the rice
      scan R1 (FLAC residuals: against the plain ``_rice_scan`` and the
-     decode's mask) exactly, at the 16-file FLAC group's shapes (K3 also
-     at the 24-bit mono group's).  Each is timed with CUDA events beside
+     decode's mask) and the predictor P1 (FLAC samples: against the plain
+     ``_predict``, on the decode's strided view) exactly, at the 16-file
+     FLAC group's shapes (K3 also at the 24-bit mono group's).  Each is
+     timed with CUDA events beside
      its twin, its bound (bytes or operations at the card's peak) and,
      for K3/K4, one ``index_add_`` call, all in milliseconds per launch
      (K1 runs one launch per bucket of the group; the phase prints the
@@ -36,12 +38,12 @@ Phases:
      ``decode_dir(folder, device="cuda")``; checks error codes against the
      port's CPU path, every good file's PCM equal to the CPU path bit for
      bit and its integers against the STREAMINFO MD5, and that K3, K4
-     and R1 launched, R1 once per FLAC group as K4;
+     R1 and P1 launched, R1 and P1 once per FLAC group as K4;
   6. the frame-chunked FLAC route: the music fixture with the port's
      ``frontend.BIT_CAP`` shrunk to the file's size, so it decodes in
-     chunks of a few frames, K3, K4 and R1 once per chunk, on the card and
-     on the CPU; checks the two bit for bit, the STREAMINFO MD5, and that
-     K3 launched once per chunk, K4 and R1 as often;
+     chunks of a few frames, K3, K4, R1 and P1 once per chunk, on the card
+     and on the CPU; checks the two bit for bit, the STREAMINFO MD5, and
+     that K3 launched once per chunk, K4, R1 and P1 as often;
   7. rates: after one warm run, 3 timed runs of ``decode_assets`` on each
      of the WAV + MP3 folder, 16 FLAC files, and 16 WAV + 16 MP3 + 16 FLAC
      (decoded audio-seconds per second; informational);
@@ -70,9 +72,10 @@ Phases:
      chunk, chunk count and peak device memory against the one-shot
      decode's; counts each stream run's launches on its own (set to 0
      just before it, read just after) and checks them: K1 and K2 once per
-     Layer III chunk, K2 once per Layer I/II chunk, K3, K4 and R1 once per
-     FLAC chunk, nothing for the PCM streams; holds K1, K2, K3, K4 and R1
-     against their twins at the streams' chunk shapes and times them;
+     Layer III chunk, K2 once per Layer I/II chunk, K3, K4, R1 and P1 once
+     per FLAC chunk, nothing for the PCM streams; holds K1, K2, K3, K4, R1
+     and P1 against their twins at the streams' chunk shapes and times
+     them;
  10. the batch DSP: ``consensus_for`` on the mixed folder's batch (card =
      CPU); ``resample_to_consensus`` of 16 × 10 s stereo tones at each of
      48,000, 32,000 and 22,050 Hz plus 17 at 44,100 Hz against the CPU path
@@ -83,12 +86,12 @@ Phases:
      WAV and 16 MP3 and the LSF MP3, 4 copies of the FLAC fixture and 2
      Layer II files (~135 MB of f32 tracks), rendered by ``cli render
      --resample`` (the live loop at PERIOD 128, SPEC_DEPTH 8) from a
-     seeded script that uses every verb; K1-K4's and R1's launches in its
-     decode are counted alone and must be exactly the folder's groups' (K1
-     and K2 as the main path's MP3 files, one more K2 for the Layer II
-     group, one R1, one K4 and one K3 for the FLAC group); each of those
-     calls' inputs is kept and K1-K4 and R1 are held against their twins
-     on them (K1, K3, K4, R1 exactly,
+     seeded script that uses every verb; K1-K4's, R1's and P1's launches
+     in its decode are counted alone and must be exactly the folder's
+     groups' (K1 and K2 as the main path's MP3 files, one more K2 for the
+     Layer II group, one R1, one P1, one K4 and one K3 for the FLAC group);
+     each of those calls' inputs is kept and K1-K4, R1 and P1 are held
+     against their twins on them (K1, K3, K4, R1, P1 exactly,
      K2 within atol 1e-4 / rtol 1e-5) and timed; the written WAV must equal
      the captured int16 blocks, and the same script with ``--platform
      cpu`` must agree within 1 LSB (the share that differs is printed);
@@ -114,11 +117,11 @@ Phases:
      same inputs (WAV and FLAC bit for bit, FLAC also against every file's
      MD5; MP3 and Layer II bit for bit or else within amplitude-scaled RMS
      5e-7, the max abs difference printed), each run's launches counted
-     alone (K1 and K2 once per data shard; in the FLAC decode R1 once per
-     data shard, K5 three times, its kernel once per card each, K3 and K4
-     never), each K1, K2 and R1 call's and each K5 kernel launch's inputs
-     kept and the kernel held against its twin on them (K1, R1 and K5
-     exactly, K2 within atol 1e-4 /
+     alone (K1 and K2 once per data shard; in the FLAC decode R1 and P1
+     once per data shard, K5 three times, its kernel once per card each,
+     K3 and K4 never), each K1, K2, R1 and P1 call's and each K5 kernel
+     launch's inputs kept and the kernel held against its twin on them
+     (K1, R1, P1 and K5 exactly, K2 within atol 1e-4 /
      rtol 1e-5) and timed, and the wall of a second run beside the single
      card's; bench.py's render over ``model`` (two chains of 64 blocks
      bit-identical, each block within 2e-6 of the single-card render,
@@ -134,8 +137,8 @@ Phases:
      --platform cuda --container flac`` of the WAV + MP3 folder (its decode's
      launches counted alone and equal to the main path's) must print "33
      written, 2 skipped"; the written folder, decoded with
-     ``decode_dir(device="cuda")`` (counted alone: R1, K4 and K3 exactly once
-     per FLAC group), gives every file its source's quantization
+     ``decode_dir(device="cuda")`` (counted alone: R1, P1, K4 and K3
+     exactly once per FLAC group), gives every file its source's quantization
      ``round(clip(pcm · 2^15))`` bit for bit (the WAV sources' integers) and
      passes its STREAMINFO MD5; on each file's PCM the encoder's pass A on
      the card against the CPU (ints, cands, is_const exact; fixed_order exact
@@ -148,8 +151,8 @@ Phases:
      FLAC folder exported at levels 5 and 8 (each decodes exactly; sizes
      and encode audio-s/s printed); pass A with dither 7 on the card equal
      to the CPU's; one 10 s file's pass A and pass B device ms, planner and
-     packer host ms and peak device memory at levels 5 and 8.  Every K1-K4
-     and R1 call of the export, the decode back and the transcodes is held
+     packer host ms and peak device memory at levels 5 and 8.  Every K1-K4,
+     R1 and P1 call of the export, the decode back and the transcodes is held
      against its twin on its inputs and timed;
  15. the host-Huffman MP3 route (``decode_group_hosthuff``: mp3fe's C++
      analysis, Huffman included, on the host, then the DSP tail on the
@@ -369,14 +372,16 @@ def phase_build() -> None:
     """Build every library at once, one compiler process each."""
     from audio_decoder_tpu_torch.codecs.flac import native as flac_native
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel, native
-    from audio_decoder_tpu_torch.ops import rice_scan, synth_kernel, window_add
+    from audio_decoder_tpu_torch.ops import (flac_predict, rice_scan,
+                                             synth_kernel, window_add)
     from audio_decoder_tpu_torch.runtime import native as runtime_native
     from audio_decoder_tpu_torch.utils import build
 
     t0 = time.perf_counter()
     loaders = (huffman_kernel.load_library, synth_kernel.load_library,
                window_add.load_library, window_add.load_library2,
-               rice_scan.load_library, native._load, flac_native._load,
+               rice_scan.load_library, flac_predict.load_library,
+               native._load, flac_native._load,
                runtime_native.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(fn) for fn in loaders]:
@@ -666,6 +671,41 @@ def _rice_timed(label: str, args, plain_reps: int = 2) -> dict:
                 library_ms=None)
 
 
+def _predict_timed(label: str, args, plain_reps: int = 1) -> dict:
+    """P1 (``predict_cuda``) on ``args``, the inputs one decode gave it (the
+    values as the decode's strided view), against the plain twin
+    ``_predict`` on the card, bit for bit; timed beside the twin, with its
+    bytes bound (the values read and the samples written once, and the
+    subframe arrays)."""
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from audio_decoder_tpu_torch.ops import flac_predict as PP
+
+    vals, kind, order, shift, wasted, coeffs = args
+    nmax = vals.shape[1]
+
+    def kernel():
+        return PP.predict_cuda(*args)
+
+    got, ref = kernel(), FV._predict(*args, nmax)
+    torch.cuda.synchronize()
+    if got.dtype != ref.dtype or got.shape != ref.shape \
+            or not torch.equal(got, ref):
+        bad = (int((got != ref).sum()) if got.shape == ref.shape
+               else f"shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+        fail(f"P1 at the {label} differs from the plain twin: samples {bad}")
+    ms = cuda_ms(kernel, 50)
+    plain_ms = cuda_ms(lambda: FV._predict(*args, nmax), plain_reps)
+    b_ms, by = bound(nbytes(vals, kind, order, shift, wasted, coeffs, got))
+    orders = torch.bincount(order.clamp(0, 32).long(), minlength=33)
+    log(f"P1 at the {label}: {got.shape[0]} subframes x {nmax} samples "
+        f"(row stride {vals.stride(0)}; orders {orders.nonzero().flatten().tolist()}, "
+        f"{int((kind == 1).sum())} CONSTANT): exact; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    return dict(shape=list(got.shape), max_abs_err=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=None)
+
+
 def phase_flac_kernels(dev) -> list[dict]:
     from audio_decoder_tpu_torch.ops import window_add as PW
 
@@ -675,6 +715,10 @@ def phase_flac_kernels(dev) -> list[dict]:
     if len(calls) != 1:
         fail(f"the 16-file FLAC group's windows called R1 {len(calls)} times")
     r1 = _rice_timed("16-file FLAC group", calls[0][0], plain_reps=3)
+    calls = seen.get("flac_predict", [])
+    if len(calls) != 1:
+        fail(f"the 16-file FLAC group's windows called P1 {len(calls)} times")
+    p1 = _predict_timed("16-file FLAC group", calls[0][0], plain_reps=2)
     out = []
     for name, tag, fn, plain, replaces, source in (
             ("window_add2", "K4", PW.window_add2, PW.window_add2_plain,
@@ -744,6 +788,13 @@ def phase_flac_kernels(dev) -> list[dict]:
         source="audio_decoder_tpu_torch/csrc/flac_rice.cu",
         replaces="audio_decoder_tpu/codecs/flac/device.py:107", launches=0,
         **{k: r1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}))
+    # nor has P1: it replaces the JAX package's lax.scan of the predictor
+    out.append(dict(
+        name="flac_predict", route="cuda",
+        source="audio_decoder_tpu_torch/csrc/flac_predict.cu",
+        replaces="audio_decoder_tpu/codecs/flac/device.py:217", launches=0,
+        **{k: p1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}))
     return out
 
@@ -849,7 +900,7 @@ def write_flac_folder(folder: str, seed: int) -> dict:
 
 
 def _flac_counts() -> dict:
-    """{kernel: launches} of the FLAC kernels (K3-K5 and R1) alone."""
+    """{kernel: launches} of the FLAC kernels (K3-K5, R1 and P1) alone."""
     return {k: n for k, n in _kernel_counts().items()
             if k not in ("mp3_entropy_scan", "mp3_polyphase_synthesis")}
 
@@ -862,12 +913,14 @@ def phase_flac_path(folder: str, good: dict, dev) -> dict:
     torch.cuda.synchronize()
     launches = _flac_counts()
     log(f"FLAC path launches: {launches}")
-    for k in ("window_add", "window_add2", "flac_rice"):
+    for k in ("window_add", "window_add2", "flac_rice", "flac_predict"):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the FLAC path")
-    if launches["flac_rice"] != launches["window_add2"]:
-        fail(f"the FLAC path launched R1 {launches['flac_rice']} times and K4 "
-             f"{launches['window_add2']}: R1 runs once per group")
+    if not launches["flac_rice"] == launches["flac_predict"] \
+            == launches["window_add2"]:
+        fail(f"the FLAC path launched R1 {launches['flac_rice']} times, P1 "
+             f"{launches['flac_predict']} and K4 {launches['window_add2']}: "
+             f"R1 and P1 run once per group")
     if batch.data.device.type != dev.type or not torch.isfinite(batch.data).all():
         fail(f"FLAC batch is not finite PCM on {dev}")
 
@@ -939,10 +992,10 @@ def phase_flac_chunked(dev) -> dict:
     if launches["window_add"] < 2:
         fail(f"the chunked route launched K3 {launches['window_add']} times: "
              "the file did not decode in chunks")
-    if not launches["flac_rice"] == launches["window_add2"] \
-            == launches["window_add"]:
-        fail(f"the chunked route launched {launches}: K3, K4 and R1 run once "
-             "per chunk")
+    if not launches["flac_rice"] == launches["flac_predict"] \
+            == launches["window_add2"] == launches["window_add"]:
+        fail(f"the chunked route launched {launches}: K3, K4, R1 and P1 run "
+             "once per chunk")
     if int(gpu.err[0]) != 0 or int(cpu.err[0]) != 0:
         fail(f"chunked route error codes {int(gpu.err[0])} (card), "
              f"{int(cpu.err[0])} (CPU)")
@@ -1376,13 +1429,14 @@ STREAM_KERNELS = {
     "mp3": ("mp3_entropy_scan", "mp3_polyphase_synthesis"),
     "layer1": ("mp3_polyphase_synthesis",),
     "layer2": ("mp3_polyphase_synthesis",),
-    "flac": ("window_add", "window_add2", "flac_rice"),
+    "flac": ("window_add", "window_add2", "flac_rice", "flac_predict"),
 }
 
 
 def _zero_kernel_counts() -> None:
     """Set every kernel's launch count to 0."""
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import flac_predict as PP
     from audio_decoder_tpu_torch.ops import rice_scan as RS
     from audio_decoder_tpu_torch.ops import synth_kernel as SK
     from audio_decoder_tpu_torch.ops import window_add as PW
@@ -1392,17 +1446,19 @@ def _zero_kernel_counts() -> None:
     for k in PW.launches:
         PW.launches[k] = 0
     RS.launches["flac_rice"] = 0
+    PP.launches["flac_predict"] = 0
 
 
 def _kernel_counts() -> dict:
     """{kernel: launches since the counts were last set to 0}."""
     from audio_decoder_tpu_torch.codecs.mpeg import huffman_kernel as HK
+    from audio_decoder_tpu_torch.ops import flac_predict as PP
     from audio_decoder_tpu_torch.ops import rice_scan as RS
     from audio_decoder_tpu_torch.ops import synth_kernel as SK
     from audio_decoder_tpu_torch.ops import window_add as PW
 
     return {"mp3_entropy_scan": HK.launches, "mp3_polyphase_synthesis": SK.launches,
-            **PW.launches, **RS.launches}
+            **PW.launches, **RS.launches, **PP.launches}
 
 
 def _counted_stream(kind: str, path: str, dev, start_sample: int = 0):
@@ -1564,10 +1620,10 @@ def _window_timed(label: str, name: str, arrays, n_out: int) -> dict:
 
 
 def phase_stream_kernels(paths: dict, dev) -> tuple[list, list, dict]:
-    """K1, K2, K3, K4 and R1 against their twins at the streams' chunk
+    """K1, K2, K3, K4, R1 and P1 against their twins at the streams' chunk
     shapes: a middle chunk of the 180 s MP3 (one K1 launch over (512 + 2)·2
     lanes, K2 over 514·18 steps), the first chunk of the Layer I and II
-    streams (K2), and the first chunk of the FLAC stream (R1, K4, then
+    streams (K2), and the first chunk of the FLAC stream (R1, K4, P1, then
     K3)."""
     from audio_decoder_tpu_torch.codecs.flac import decoder as FD
     from audio_decoder_tpu_torch.codecs.flac import device as FV
@@ -1608,6 +1664,8 @@ def phase_stream_kernels(paths: dict, dev) -> tuple[list, list, dict]:
            for name in ("window_add2", "window_add")}
     k34["flac_rice"] = [_rice_timed("FlacStream chunk", a)
                         for a, _kw in seen["flac_rice"]]
+    k34["flac_predict"] = [_predict_timed("FlacStream chunk", a)
+                           for a, _kw in seen["flac_predict"]]
     return k1, k2, k34
 
 
@@ -1831,9 +1889,13 @@ def _render_cli(folder: str, script: str, out: str, platform: str):
 
 
 def _copied(a):
-    """``a`` with every tensor in it (also inside lists and tuples) cloned."""
+    """``a`` with every tensor in it (also inside lists and tuples) cloned;
+    a view with gaps between its rows (P1's values) keeps its strides."""
     if torch.is_tensor(a):
-        return a.clone()
+        if a.is_contiguous():
+            return a.clone()
+        return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                   device=a.device).copy_(a)
     if isinstance(a, (list, tuple)):
         return type(a)(_copied(x) for x in a)
     return a
@@ -1841,9 +1903,9 @@ def _copied(a):
 
 @contextlib.contextmanager
 def _captured_kernel_inputs():
-    """Inside the block every call of a K1-K5 or R1 wrapper first keeps a
-    copy of its inputs: yields {kernel: [(args, kwargs), ...]}.  K1 and K2
-    are looked up in their modules at each call, K3, K4 and R1 where the
+    """Inside the block every call of a K1-K5, R1 or P1 wrapper first keeps
+    a copy of its inputs: yields {kernel: [(args, kwargs), ...]}.  K1 and K2
+    are looked up in their modules at each call, K3, K4, R1 and P1 where the
     FLAC device program bound them, and K5 at its per-card launch
     (``window_add._window_add_spmd_cuda``: the card's lane sets and
     n_out); the wrappers are restored after."""
@@ -1858,6 +1920,7 @@ def _captured_kernel_inputs():
              (FV, "window_add2", "window_add2"),
              (FV, "window_add", "window_add"),
              (FV, "rice_scan_cuda", "flac_rice"),
+             (FV, "predict_cuda", "flac_predict"),
              (PW, "_window_add_spmd_cuda", "window_add_spmd")]
     saved = [getattr(mod, attr) for mod, attr, _ in slots]
 
@@ -1877,10 +1940,10 @@ def _captured_kernel_inputs():
 
 
 def captured_kernels(seen: dict, where: str) -> dict:
-    """K1-K5 and R1 against their twins on the very inputs a run gave them
-    (``_captured_kernel_inputs``), each call timed beside its twin on its
-    inputs' card: K1 per bucket exactly, K2 per group within atol 1e-4 /
-    rtol 1e-5, R1, K4, K3 and K5 (per card) exactly.  Returns {kernel:
+    """K1-K5, R1 and P1 against their twins on the very inputs a run gave
+    them (``_captured_kernel_inputs``), each call timed beside its twin on
+    its inputs' card: K1 per bucket exactly, K2 per group within atol 1e-4 /
+    rtol 1e-5, R1, P1, K4, K3 and K5 (per card) exactly.  Returns {kernel:
     [shape entries]}."""
     out: dict = {}
 
@@ -1897,6 +1960,9 @@ def captured_kernels(seen: dict, where: str) -> dict:
                 f"{where}'s K2 call {i}", ts, {"synth_n": n_mat, "g2": g2})
     for i, (args, _kw) in enumerate(seen.get("flac_rice", [])):
         on_card("flac_rice", args, _rice_timed, f"{where}'s R1 call {i}", args)
+    for i, (args, _kw) in enumerate(seen.get("flac_predict", [])):
+        on_card("flac_predict", args, _predict_timed, f"{where}'s P1 call {i}",
+                args)
     for name in ("window_add2", "window_add"):
         for i, (args, _kw) in enumerate(seen.get(name, [])):
             on_card(name, args, _window_timed, f"{where}'s call {i}", name,
@@ -1972,9 +2038,9 @@ def _k5_call_timed(label: str, sets, n_out: int) -> dict:
 def phase_engine_cli(folder: str, work: str, names: list, card: str,
                      seed: int, main_launches: dict) -> tuple[dict, dict]:
     """``python -m audio_decoder_tpu_torch.cli render --resample`` over the
-    engine folder on the card (K1-K4 and R1 run in its decode; their launches are
-    counted alone and must be the folder's groups' exactly, and each call's
-    inputs are kept and the kernels held against their twins on them), the
+    engine folder on the card (K1-K4, R1 and P1 run in its decode; their
+    launches are counted alone and must be the folder's groups' exactly, and
+    each call's inputs are kept and the kernels held against their twins on them), the
     written WAV against the captured int16 blocks, then the same script
     with ``--platform cpu``: the card within 1 LSB of the CPU.  The script
     and the WAVs go to ``work``.  Returns the kernels' launches and their
@@ -1995,12 +2061,12 @@ def phase_engine_cli(folder: str, work: str, names: list, card: str,
         f"{args.pcm.shape[0] / RATE:.3f} s of audio)  [{card}]")
     # the folder's MP3 files are the main path's own (the stereo group's
     # buckets and the LSF group), its 2 Layer II files one more K2 group,
-    # its 4 FLAC copies one group for R1, K4 and K3
+    # its 4 FLAC copies one group for R1, P1, K4 and K3
     want = {"mp3_entropy_scan": main_launches["mp3_entropy_scan"],
             "mp3_polyphase_synthesis":
                 main_launches["mp3_polyphase_synthesis"] + 1,
             "window_add2": 1, "window_add": 1, "window_add_spmd": 0,
-            "window_add_spmd_kernel": 0, "flac_rice": 1}
+            "window_add_spmd_kernel": 0, "flac_rice": 1, "flac_predict": 1}
     calls = {k: len(seen.get(k, [])) for k in want}
     if launches != want or calls != want:
         fail(f"the engine's decode launched {launches} in {calls} wrapper "
@@ -2332,8 +2398,8 @@ def _mesh_refs(inp: dict, dev) -> dict:
 
 def _counted_kernels(fn, patches=()):
     """``fn()`` with every launch count set to 0 just before it and read
-    just after, each K1-K5 and R1 call's inputs kept; ``patches`` are (module,
-    attribute, wrapper) set for the run only.  Returns (result, {kernel:
+    just after, each K1-K5, R1 and P1 call's inputs kept; ``patches`` are
+    (module, attribute, wrapper) set for the run only.  Returns (result, {kernel:
     launches}, {kernel: [(args, kwargs)]}, wall seconds)."""
     saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
     for m, a, w in patches:
@@ -2354,7 +2420,7 @@ def _counted_kernels(fn, patches=()):
 
 def _counted_run(fn):
     """``fn()`` with every launch count set to 0 just before it and read
-    just after, each K1-K5 and R1 call's inputs kept (``_captured_kernel_inputs``);
+    just after, each K1-K5, R1 and P1 call's inputs kept (``_captured_kernel_inputs``);
     then ``fn()`` once more, timed alone: (the first run's result,
     {kernel: launches}, {kernel: [(args, kwargs)]}, the second's wall
     seconds)."""
@@ -2386,7 +2452,7 @@ def _close_or_equal(label: str, ref: torch.Tensor, got: torch.Tensor) -> str:
 def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
                   label: str) -> tuple[dict, dict]:
     """Every sharded decode on ``mesh``, each counted alone and held against
-    the single-card result, and every K1, K2, R1 and K5 call of the MP3,
+    the single-card result, and every K1, K2, R1, P1 and K5 call of the MP3,
     Layer II and FLAC runs held against its twin on that call's inputs
     (``captured_kernels``); returns ({path: {kernel: launches}}, {kernel:
     [shape entries]})."""
@@ -2459,11 +2525,12 @@ def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
         ints = np.round(got[i, :a.total * 2].astype(np.float64) * 32768)
         if frontend.verify_md5(a, ints.astype(np.int64).reshape(a.total, 2)) is not True:
             fail(f"mesh {label} FLAC short file {i} fails its MD5")
-    # R1 once per data shard, K5 three times, one kernel launch per card
-    # each; K3 and K4 never
+    # R1 and P1 once per data shard, K5 three times, one kernel launch per
+    # card each; K3 and K4 never
     cards = len(set(mesh.axis_devices("data")))
     want = {"window_add": 0, "window_add2": 0, "window_add_spmd": 3,
-            "window_add_spmd_kernel": 3 * cards, "flac_rice": D}
+            "window_add_spmd_kernel": 3 * cards, "flac_rice": D,
+            "flac_predict": D}
     if {k: counts[k] for k in want} != want:
         fail(f"mesh {label} FLAC launched {counts}, want {want}")
     launches["flac"] = counts
@@ -2477,13 +2544,13 @@ def _mesh_decodes(mesh, inp: dict, ref: dict, card: str,
             fail(f"mesh {label} {path} launched {launches[path]}, want {want}")
     calls = {k: len(v) for k, v in seen_all.items()}
     want = {"mp3_entropy_scan": D, "mp3_polyphase_synthesis": 2 * D,
-            "window_add_spmd": 3 * cards, "flac_rice": D}
+            "window_add_spmd": 3 * cards, "flac_rice": D, "flac_predict": D}
     if calls != want:
         fail(f"mesh {label}: the kernels' wrappers were called {calls} "
              f"times, want {want}")
     shapes = captured_kernels(seen_all, f"mesh {label}")
-    log(f"mesh {label}: every K1, K2, R1 and K5 call of the sharded MP3, Layer "
-        f"II and FLAC runs ({calls}) held against its twin on its inputs")
+    log(f"mesh {label}: every K1, K2, R1, P1 and K5 call of the sharded MP3, "
+        f"Layer II and FLAC runs ({calls}) held against its twin on its inputs")
     return launches, shapes
 
 
@@ -2649,7 +2716,7 @@ def phase_multichip(folder: str, wavs: dict, layer2: bytes, dev, card: str,
 # ---------------------------------------------------------------------------
 
 ENCODE_KERNELS = ("mp3_entropy_scan", "mp3_polyphase_synthesis", "window_add2",
-                  "window_add", "flac_rice")
+                  "window_add", "flac_rice", "flac_predict")
 
 
 def _cli_run(argv: list) -> tuple[int, str]:
@@ -2672,8 +2739,8 @@ def _quantized16(pcm: np.ndarray) -> np.ndarray:
 
 def _decode_back(folder: str, dev, label: str):
     """``decode_dir(folder, device="cuda")`` of written .flac files, counted
-    alone, with the FLAC decoder's device groups counted beside it: R1, K4
-    and K3 must launch exactly once per group and nothing else at all."""
+    alone, with the FLAC decoder's device groups counted beside it: R1, P1,
+    K4 and K3 must launch exactly once per group and nothing else at all."""
     import audio_decoder_tpu_torch as adt
     from audio_decoder_tpu_torch.codecs.flac import decoder as FD
 
@@ -2688,7 +2755,8 @@ def _decode_back(folder: str, dev, label: str):
     (batch, names), counts, seen, wall = _counted_kernels(
         lambda: adt.decode_dir(folder, device=dev),
         [(FD, "_decode_batch", counting)])
-    want = {k: len(groups) if k in ("window_add", "window_add2", "flac_rice")
+    want = {k: len(groups) if k in ("window_add", "window_add2", "flac_rice",
+                                    "flac_predict")
             else 0 for k in counts}
     if len(groups) < 1 or counts != want:
         fail(f"{label}: the decode back launched {counts}, want {want} "
@@ -2769,7 +2837,7 @@ def _encode_stages(x: np.ndarray, dev, level: int) -> dict:
 def phase_flac_export(folder: str, wavs: dict, flac_folder: str, work: str,
                       dev, card: str, main_launches: dict) -> dict:
     """Phase 14: FLAC export on the card.  Returns {kernel: {"launches":
-    {run: n}, "shapes": [...]}} for K1-K4 and R1."""
+    {run: n}, "shapes": [...]}} for K1-K4, R1 and P1."""
     import audio_decoder_tpu_torch as adt
     from audio_decoder_tpu_torch.codecs.flac import frontend
     from audio_decoder_tpu_torch.io import encode as IE
@@ -2834,7 +2902,7 @@ def phase_flac_export(folder: str, wavs: dict, flac_folder: str, work: str,
             fail(f"{name}.flac fails its STREAMINFO MD5")
     log(f"FLAC export: all {len(written)} files decode on the card to their "
         f"sources' quantization bit for bit with their MD5 ({back_wall:.3f} s; "
-        f"R1, K4 and K3 once per FLAC group, {len(groups)} groups of {groups} "
+        f"R1, P1, K4 and K3 once per FLAC group, {len(groups)} groups of {groups} "
         f"files)")
 
     # (b) the card against the CPU on each exported file's PCM

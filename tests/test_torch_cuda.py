@@ -12,8 +12,10 @@ suite's JAX conftest:
 (tests/test_torch_window_add.py), so both hold the same cases; so do
 ``window1_case`` (K3's own edges), which also serves
 tools/rehearse_cuda.py, as ``window2_cases`` (K4's own edges),
-``spmd_case`` (K5's) and ``rice_case`` (the rice scan's; with
-``rice_plain`` it serves tests/test_torch_rice_scan.py too) do;
+``spmd_case`` (K5's), ``rice_case`` (the rice scan's; with
+``rice_plain`` it serves tests/test_torch_rice_scan.py too) and
+``predict_case`` (the predictor's; with ``decode_view`` it serves
+tests/test_torch_flac_predict.py too) do;
 ``spmd_shards`` also builds the CPU tests' K5 cases
 (tests/test_torch_parallel.py).  The FLAC encoder's bar
 (``check_pass_a``, ``check_pass_b``) and ``flac_passes`` serve
@@ -38,6 +40,7 @@ from audio_decoder_tpu_torch.codecs.flac import decoder as FD
 from audio_decoder_tpu_torch.codecs.flac import device as FV
 from audio_decoder_tpu_torch.codecs.flac import frontend as FF
 from audio_decoder_tpu_torch.codecs.mpeg import native
+from audio_decoder_tpu_torch.ops import flac_predict as PP
 from audio_decoder_tpu_torch.ops import rice_scan as RS
 from audio_decoder_tpu_torch.ops import synth_kernel as SK
 from audio_decoder_tpu_torch.ops import window_add as PW
@@ -838,12 +841,16 @@ def test_flac_decode_paths_cuda_matches_cpu(cuda_device):
 
 def test_flac_chunked_route_cuda_matches_cpu(cuda_device, monkeypatch):
     """The music fixture past a shrunken ``BIT_CAP`` decodes frame-chunked
-    (K3 and K4 once per chunk) on the card bit for bit as on the CPU."""
+    (K3, K4 and the predictor once per chunk) on the card bit for bit as
+    on the CPU."""
     path = FLAC_FIXTURES[0]
     monkeypatch.setattr(FF, "BIT_CAP", 8 * os.path.getsize(path))
     before = PW.launches["window_add"]
+    before_p1 = PP.launches["flac_predict"]
     gpu = decode_paths([path], device=cuda_device)
     assert PW.launches["window_add"] - before > 1  # one launch per chunk
+    assert (PP.launches["flac_predict"] - before_p1
+            == PW.launches["window_add"] - before)
     cpu = decode_paths([path], device="cpu")
     assert int(gpu.err[0]) == 0 and int(cpu.err[0]) == 0
     assert np.array_equal(gpu.file(0).pcm, cpu.file(0).pcm)
@@ -980,6 +987,132 @@ def test_flac_decode_wire_with_the_rice_kernel_matches_cpu(cuda_device):
             pcm, ovf = FV.flac_decode_wire(*args, **statics)
             outs.append((pcm.cpu(), ovf.cpu()))
             assert RS.launches["flac_rice"] == before + launched
+        (cp, co), (gp, go) = outs
+        assert not co.any() and torch.equal(go, co)
+        assert torch.equal(gp, cp)
+
+
+# ---------------------------------------------------------------------------
+# The FLAC predictor kernel (csrc/flac_predict.cu)
+# ---------------------------------------------------------------------------
+
+#: the blocksizes (nmax) ``predict_case`` is made at
+PREDICT_NMAX = (1, 16, 1152, 3072, 4096)
+#: ``predict_case``'s subframes: four full warps and a partial fifth
+PREDICT_ROWS = 147
+
+
+def predict_case(nmax: int):
+    """(vals i32 ``[Ls, nmax]``, kind, order, shift, wasted i32 ``[Ls]``,
+    coeffs i32 ``[Ls, 32]``) of the predictor's edges at ``nmax``, from a
+    fixed numpy seed.  Each warp of 32 subframes walks one order class:
+    rows 0-31 VERBATIM and CONSTANT (order 0), 32-63 FIXED 0-4 then LPC
+    1-4, 64-95 LPC 5-8, 96-127 LPC 9-16, 128-146 (a partial warp) LPC
+    17-32, then 32, a CONSTANT row and an all-zero padding row.  LPC shifts
+    run through 0-15; every 7th LPC row has every coefficient at
+    +(2^15 - 1) and the next at -(2^15 - 1), the rest are random under
+    2^15; residuals are small, within 1,000 of the int32 limits, or
+    anywhere in int32, so the cast and the add wrap; wasted bits 0-8 on
+    every 4th row and 31 on two."""
+    from audio_decoder_tpu_torch.codecs.flac.frontend import FIXED_COEFFS
+
+    L = PREDICT_ROWS
+    rng = np.random.default_rng(25 + PREDICT_NMAX.index(nmax))
+    r = np.arange(L)
+    kind = np.zeros(L, np.int64)
+    kind[24:32] = 1
+    kind[145] = 1
+    order = np.zeros(L, np.int64)
+    order[37:64] = 1 + (r[37:64] % 4)
+    order[64:96] = 5 + (r[64:96] % 4)
+    order[[70, 81]] = (2, 4)
+    order[96:128] = 9 + (r[96:128] % 8)
+    order[128:144] = np.arange(17, 33)
+    order[144] = 32
+    shift = np.where(order > 0, r % 16, 0)
+    coeffs = np.zeros((L, 32), np.int64)
+    top = (1 << 15) - 1
+    for i in range(L):
+        o = int(order[i])
+        coeffs[i, :o] = rng.integers(-top, top + 1, size=o)
+        if i % 7 == 0:
+            coeffs[i, :o] = top
+        elif i % 7 == 1:
+            coeffs[i, :o] = -top
+    for o in range(5):  # FIXED: the spec's coefficients, shift 0
+        order[32 + o], shift[32 + o] = o, 0
+        coeffs[32 + o] = 0
+        coeffs[32 + o, :o] = FIXED_COEFFS[o]
+    wasted = np.where(r % 4 == 0, (r // 4) % 9, 0)
+    wasted[[5, 130]] = 31
+    lim = 1 << 31
+    small = rng.integers(-(1 << 15), 1 << 15, size=(L, nmax))
+    near = rng.integers(0, 1000, size=(L, nmax))
+    edge = np.where(rng.random((L, nmax)) < 0.5, lim - 1 - near, near - lim)
+    anywhere = rng.integers(-lim, lim, size=(L, nmax))
+    vals = np.where((r % 3 == 0)[:, None], small,
+                    np.where((r % 3 == 1)[:, None], edge, anywhere))
+    vals[146] = 0
+    return tuple(a.astype(np.int32) for a in
+                 (vals, kind, order, shift, wasted, coeffs))
+
+
+def decode_view(vals: torch.Tensor, offset: int = 3) -> torch.Tensor:
+    """``vals`` [Ls, nmax] as the decode holds it: a view of flat values
+    with rows ``nmax + 1`` apart, ``offset`` elements into its storage."""
+    Ls, nmax = vals.shape
+    flat = torch.full((offset + Ls * (nmax + 1),), -7, dtype=vals.dtype,
+                      device=vals.device)
+    view = flat[offset:].reshape(Ls, nmax + 1)[:, :nmax]
+    view.copy_(vals)
+    return view
+
+
+@pytest.mark.parametrize("nmax", PREDICT_NMAX)
+@pytest.mark.parametrize("layout", ("decode-view", "contiguous"))
+def test_predict_kernel_matches_the_twin(cuda_device, nmax, layout):
+    """One launch per call; the samples of the plain twin ``_predict`` on
+    the CPU bit for bit, through the decode's strided view and through a
+    contiguous array."""
+    case = [torch.as_tensor(a) for a in predict_case(nmax)]
+    want = FV._predict(*case, nmax)
+    vals, *rest = [a.to(cuda_device) for a in case]
+    if layout == "decode-view":
+        vals = decode_view(vals)
+    before = PP.launches["flac_predict"]
+    got = FV._predict_lanes(vals, *rest, nmax)
+    torch.cuda.synchronize()
+    assert PP.launches["flac_predict"] == before + 1
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_predict_raises_when_the_kernel_fails(cuda_device, monkeypatch):
+    """No fallback: a launch that returns a CUDA error raises."""
+    class Failing:
+        @staticmethod
+        def flac_predict_launch(*args):
+            return 700  # cudaErrorIllegalAddress
+
+    case = [torch.as_tensor(a).to(cuda_device) for a in predict_case(16)]
+    monkeypatch.setattr(PP, "load_library", lambda: Failing)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        FV._predict_lanes(*case, 16)
+
+
+def test_flac_decode_wire_with_the_predict_kernel_matches_cpu(cuda_device):
+    """A whole ``flac_decode_wire`` on the card, packed by
+    ``decoder.pack_wire`` from the port's own narrow and wide encodes,
+    equals the CPU path bit for bit, with one predictor launch per call."""
+    for blobs in _rice_wire_batches().values():
+        an = [FF.analyze(b) for b in blobs]
+        outs = []
+        for dev, launched in (("cpu", 0), (cuda_device, 1)):
+            before = PP.launches["flac_predict"]
+            args, statics = FD.pack_wire(an, dev)
+            pcm, ovf = FV.flac_decode_wire(*args, **statics)
+            outs.append((pcm.cpu(), ovf.cpu()))
+            assert PP.launches["flac_predict"] == before + launched
         (cp, co), (gp, go) = outs
         assert not co.any() and torch.equal(go, co)
         assert torch.equal(gp, cp)

@@ -192,6 +192,12 @@ template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int m) {
   return shim::shfl(v, (shim::tid & 31) ^ m);
 }
+// every lane of the warp reads every lane's value (all 32 must call it)
+inline int __reduce_max_sync(unsigned, int v) {
+  int m = v;
+  for (int src = 0; src < 32; ++src) m = std::max(m, shim::shfl(v, src));
+  return m;
+}
 // Loads and stores of a T check the alignment its width needs on the card.
 template <class T>
 inline void shim_check_aligned(const void* p) {

@@ -29,7 +29,12 @@ exactly against ``window_add_spmd_plain``.  A file named ``flac_rice.cu``
 (the FLAC rice scan) is run on ``rice_case``'s cases through
 ``ops/rice_scan.rice_scan_cuda``, held exactly against ``rice_plain`` (the
 plain twin and the decode's mask), after a call with the other variant's
-codes per step, which it must refuse.  Another source is only built.
+codes per step, which it must refuse.  A file named ``flac_predict.cu``
+(the FLAC predictor) is run on ``predict_case``'s blocksizes through
+``ops/flac_predict.predict_cuda``, on the decode's strided view
+(``decode_view``) and on a contiguous array, each held exactly against the
+plain twin ``_predict``, after a call with overlapping rows, which it must
+refuse.  Another source is only built.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from audio_decoder_tpu_torch.ops import flac_predict as PP  # noqa: E402
 from audio_decoder_tpu_torch.ops import rice_scan as RS  # noqa: E402
 from audio_decoder_tpu_torch.ops import window_add as PW  # noqa: E402
 
@@ -55,6 +61,8 @@ OUT = os.path.join(ROOT, "build", "rehearse")
 K4 = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "window_add2.cu")
 K3 = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "window_add.cu")
 RICE = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc", "flac_rice.cu")
+PREDICT = os.path.join(ROOT, "audio_decoder_tpu_torch", "csrc",
+                       "flac_predict.cu")
 
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                      re.S)
@@ -241,6 +249,42 @@ def rehearse_rice(so: str, only: str | None) -> None:
                              f"{torch.nonzero(got_o != want_o).flatten()[:8].tolist()}")
 
 
+def rehearse_predict(so: str, only: str | None) -> None:
+    from audio_decoder_tpu_torch.codecs.flac import device as FV
+    from tests.test_torch_cuda import PREDICT_NMAX, decode_view, predict_case
+
+    lib = C.CDLL(so)
+    PP._declare(lib)
+    # rows that overlap (the wrapper refuses them first): refused
+    vals, *rest = [torch.as_tensor(a) for a in predict_case(16)]
+    rc = lib.flac_predict_launch(vals.data_ptr(), 8,
+                                 *(t.data_ptr() for t in rest),
+                                 vals.shape[0], 16, vals.data_ptr(), None)
+    if rc == 0:
+        raise SystemExit("predict: the library took a row stride under nmax")
+    print(f"predict: overlapping rows refused (CUDA error {rc})", flush=True)
+    for nmax in PREDICT_NMAX:
+        if only and str(nmax) != only:
+            continue
+        case = [torch.as_tensor(a) for a in predict_case(nmax)]
+        want = FV._predict(*case, nmax)
+        for layout, vals in (("decode-view", decode_view(case[0])),
+                             ("contiguous", case[0])):
+            t0 = time.perf_counter()
+            got = PP.predict_cuda(vals, *case[1:], lib=lib, cuda_stream=0)
+            ok = torch.equal(got, want)
+            print(f"predict nmax {nmax} ({layout}): "
+                  f"{'ok' if ok else 'DIFFERS'} ({got.shape[0]} subframes; "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+            if not ok:
+                bad = torch.nonzero(got != want)
+                raise SystemExit(f"predict nmax {nmax} ({layout}): "
+                                 f"{bad.shape[0]} samples differ, first "
+                                 f"{bad[:4].tolist()}: "
+                                 f"{got[tuple(bad[:4].t())].tolist()} vs "
+                                 f"{want[tuple(bad[:4].t())].tolist()}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("source", nargs="?", default=K4)
@@ -255,6 +299,8 @@ def main() -> None:
         rehearse_k5(so, args.only)
     elif os.path.basename(args.source) == os.path.basename(RICE):
         rehearse_rice(so, args.only)
+    elif os.path.basename(args.source) == os.path.basename(PREDICT):
+        rehearse_predict(so, args.only)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,11 @@ before it one JSON line ``{"spans": ...}`` with: each span's host
 milliseconds per call over every call of the run (warm-up included);
 the share of ``decode.call``'s host time that its direct children cover
 (``decode.route``, ``decode.<family>``, ``decode.assemble``); the
-counters per call (for FLAC, the device chunks and the rice kernel's
-launches and lanes); and, with ``--trace 1``, each device-timed span's
-device milliseconds per traced call beside the trace's device busy time
-and wall per traced call.
+counters per call (for FLAC, the device chunks, the rice kernel's
+launches and lanes and the predictor kernel's launches and subframes);
+and, with ``--trace 1``, each device-timed span's device milliseconds per
+traced call beside the trace's device busy time and wall per traced
+call.
 
 Usage (from the root of a checkout, on the card):
   python3 tools/torch_span_report.py --workload fma-mp3.loader --seed 7 \\
@@ -30,7 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from h100bench import run  # noqa: E402
 
 DEVICE_TIMED = ("mp3.entropy", "mp3.requantize", "mp3.stereo", "mp3.imdct", "mp3.synth",
-                "flac.rice_scan")
+                "flac.rice_scan", "flac.predict")
 OWN = ("decode.call", "decode.route", "decode.assemble")
 
 
@@ -48,11 +49,15 @@ def span_report(trace, result: dict, traced_calls: int) -> dict:
            "h2d_copies_per_call": stats["h2d"].calls / calls if "h2d" in stats else 0.0,
            "h2d_mb_per_call": stats["h2d"].items / calls / 1e6 if "h2d" in stats else 0.0}
     if "flac.window_add2" in stats:
-        # one rice kernel launch per FLAC device chunk (one K4 call each)
+        # one rice and one predictor kernel launch per FLAC device chunk (one
+        # K4 call each)
         out["flac_chunks_per_call"] = stats["flac.window_add2"].calls / calls
         rice = stats.get("flac.rice_kernel")
         out["rice_kernel_launches_per_call"] = rice.calls / calls if rice else 0.0
         out["rice_kernel_lanes_per_call"] = rice.items / calls if rice else 0.0
+        pred = stats.get("flac.predict_kernel")
+        out["predict_kernel_launches_per_call"] = pred.calls / calls if pred else 0.0
+        out["predict_kernel_subframes_per_call"] = pred.items / calls if pred else 0.0
     if "busy_s" in result["device"]:
         device = {n: trace.device_ms(n) for n in DEVICE_TIMED}
         out["device_ms_per_traced_call"] = {
