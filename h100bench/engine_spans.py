@@ -77,7 +77,7 @@ def render_device_us(tr) -> tuple[float, float] | None:
         return None
     fetches = sorted((a, b) for n, a, b in tr.ranges if n == "engine.fetch")
     fetch_starts = [a for a, _ in fetches]
-    events = sorted((a, b, n) for n, a, b in tr.device)
+    events = sorted((a, b, n) for n, a, b, _ in tr.device)
     starts = [a for a, _, _ in events]
     work, copies = [], []
     for a, b in renders:

@@ -1,5 +1,6 @@
 """Share of the traced stretch in which no device event (kernel, copy,
-memset) ran: 100 × (1 − union of the device events' intervals / stretch)."""
+memset) ran: 100 × (1 − union of the device events' intervals / stretch),
+averaged over the cell's cards (``Trace.busy_s`` is the cards' mean)."""
 
 
 def read(run):

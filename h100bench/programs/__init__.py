@@ -10,7 +10,15 @@ A program module holds:
 * ``start(config, mix, inputs, seed, device, **hooks)``: the session, made
   in set-up (its time counts in ``setup_s``; it may run the program under
   test).  ``inputs`` is the pool the configuration's maker made; ``hooks``
-  are what a test hands ``run_cell`` to break the program underneath;
+  are what a test hands ``run_cell`` to break the program underneath.
+  ``device`` is the cell's first card: ``"cuda"`` for a cell on one card,
+  which gets nothing more.  A cell on more cards (``chips`` in
+  ``BENCHMARK.json``) also gets the keyword ``cards``, the list of them
+  all, ``"cuda:0"`` to ``"cuda:<chips-1>"``, whose first is ``device``; its
+  program spreads its work over them, and its calls' fetches wait for
+  every card's work.  The loop syncs every card after the warm-up, reads
+  every card's peak memory and empties every card's cache before the
+  references run;
 * ``pieces(config, mix)``: the files (paths from the checkout's root) the
   cell needs besides the configuration, the mix, the maker and the
   readers; it raises ``KeyError`` or ``ValueError`` on a mix it cannot run.

@@ -11,6 +11,11 @@ none), and each metric is read by ``metrics/<name>.py`` (or
 port, is entered only through that program module; the loop here knows no
 program.
 
+A cell runs on the ``chips`` cards it names, ``cuda:0`` onwards, all
+handed to its program (``programs/__init__.py``); ``memory_peak_bytes`` is
+the fullest card's peak, and the result line's ``device`` also lists each
+card's peak and, traced, each card's busy seconds.
+
 Set-up (``setup_s``) runs from the start of this process: imports, CUDA
 initialisation, the pool of files (made on a checkout's first run, read
 after), the program's session (its libraries, built into the port's own
@@ -117,14 +122,61 @@ def program(config: dict, where: str = PROGRAMS):
     return _module(path, f"h100bench.programs.{name}")
 
 
+def cell_cards(device: str, chips: int) -> list[str]:
+    """The cards a cell's program gets: ``device`` alone for one card;
+    ``cuda:0`` to ``cuda:<chips-1>`` for more, or on the CPU (the tests)
+    ``chips`` times the CPU."""
+    import torch
+
+    if chips == 1:
+        return [device]
+    if torch.device(device).type == "cuda":
+        return [f"cuda:{i}" for i in range(chips)]
+    return [device] * chips
+
+
+def card_index(card: str) -> int:
+    """The card's device index, as the profiler's device events give it
+    (``cuda`` alone is card 0: the harness makes no other card current)."""
+    import torch
+
+    return torch.device(card).index or 0
+
+
+def sync_card(card: str) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(card).type == "cuda":
+        torch.cuda.synchronize(card)
+
+
+def card_peak(card: str) -> int:
+    """The card's peak of allocated bytes in this process (0 on the CPU)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated(card) if torch.device(card).type == "cuda" else 0
+
+
+def free_card(card: str) -> None:
+    """Release the card's cached, unused memory blocks."""
+    import torch
+
+    if torch.device(card).type == "cuda":
+        with torch.cuda.device(card):
+            torch.cuda.empty_cache()
+
+
 def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool, *,
-             device: str = "cuda", t_start: float = T_START, cache_root: str = CACHE,
-             workers: int = WORKERS, config_over: dict | None = None,
+             device: str = "cuda", cards: list[str] | None = None, t_start: float = T_START,
+             cache_root: str = CACHE, workers: int = WORKERS, config_over: dict | None = None,
              mix_over: dict | None = None, programs: str = PROGRAMS, **hooks) -> dict:
-    """One run of a cell: the result line's object.  The tests shrink the
-    cell (``config_over``, ``mix_over``), run it on the CPU, take the
-    program from another directory (``programs``) and break it underneath
-    (``hooks``, which go to the program's ``start``)."""
+    """One run of a cell: the result line's object.  The program gets the
+    cell's cards (``cell_cards``; ``cards`` overrides them, as a test hands
+    one card twice).  The tests shrink the cell (``config_over``,
+    ``mix_over``), run it on the CPU, take the program from another
+    directory (``programs``) and break it underneath (``hooks``, which go
+    to the program's ``start``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -132,7 +184,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
     config = {**config, **(config_over or {})}
     mix = {**mix, **(mix_over or {})}
     prog = program(config, programs)
-    on_card = torch.device(device).type == "cuda"
+    cards = list(cards or cell_cards(device, int(cell["chips"])))
+    on_card = torch.device(cards[0]).type == "cuda"
     if "torch_threads" in mix:
         torch.set_num_threads(int(mix["torch_threads"]))
 
@@ -140,15 +193,17 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
     inputs, made = pool.load(config, cache_root, workers)
     pool_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    session = prog.start(config, mix, inputs, seed, device, **hooks)
+    if len(cards) > 1:
+        hooks = {**hooks, "cards": cards}
+    session = prog.start(config, mix, inputs, seed, cards[0], **hooks)
     start_s = time.perf_counter() - t0
 
     warmup = int(mix["warmup_calls"])
     t0 = time.perf_counter()
     for k in range(warmup):
         session.call(k)
-    if on_card:
-        torch.cuda.synchronize()
+    for card in cards:
+        sync_card(card)
     warm_s = time.perf_counter() - t0
     setup_s = time.perf_counter() - t_start
     print(f"set-up {setup_s:.3f} s: pool of {len(inputs.blobs)} files "
@@ -188,20 +243,21 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
         if t_end - t_window >= seconds and (not traced or len(traced_calls) == n_traced):
             break
     wall_s = t_end - t_window
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = [card_peak(card) for card in cards]
 
     # the program's state goes before the references run
     outputs = {q: session.to_host(records[q], out) for q, out in kept.kept.items()}
     kept.kept.clear()
     session.close()
-    if on_card:
-        torch.cuda.empty_cache()
+    for card in cards:
+        free_card(card)
 
     tr = None
     if traced:
         tr = trace_mod.from_profile(prof, len(traced_calls),
                                     [records[j].files for j in traced_calls],
-                                    sum(records[j].audio_s for j in traced_calls))
+                                    sum(records[j].audio_s for j in traced_calls),
+                                    tuple(card_index(card) for card in cards))
 
     t0 = time.perf_counter()
     checks, failed = session.judge(records, outputs, workers)
@@ -216,10 +272,11 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, traced: bool
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if on_card else "cpu",
-           "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-           "count": int(cell["chips"]), "memory_peak_bytes": int(peak)}
+           "kind": torch.cuda.get_device_name(cards[0]) if on_card else "cpu",
+           "count": len(cards), "memory_peak_bytes": int(max(peaks)),
+           "memory_peak_bytes_per_card": [int(p) for p in peaks]}
     if tr is not None:
-        dev.update(busy_s=tr.busy_s, window_s=tr.window_s)
+        dev.update(busy_s=tr.busy_s, window_s=tr.window_s, busy_s_per_card=tr.busy_s_per_card)
     result = {"correct": all(v <= lim for v, lim in checks.values()) and failed == 0,
               "attempted": len(records), "failed": failed, "metrics": metrics, "device": dev}
     if tr is not None:

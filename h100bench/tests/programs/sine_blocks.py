@@ -2,7 +2,9 @@
 rendered by torch in blocks of ``block_frames``, ``blocks_per_call`` a
 call, at the pool's sample rate and channel count, judged against NumPy in
 float64.  Its mix keys: ``block_frames``, ``blocks_per_call``.  It hands
-over no files.
+over no files.  On a cell of several cards the blocks of a call are dealt
+to the cards in turn and joined on the first; its record names the card
+of each block.
 
 ``start``'s hook ``alter`` changes each call's output where it is made
 (the tests plant a fault with it).
@@ -20,6 +22,7 @@ class Block:
     k: int
     audio_s: float
     files: list
+    cards: list
 
 
 def pieces(config: dict, mix: dict) -> list[str]:
@@ -28,15 +31,15 @@ def pieces(config: dict, mix: dict) -> list[str]:
     return []
 
 
-def start(config, mix, inputs, seed, device, alter=None):
-    return Session(mix, inputs, seed, device, alter)
+def start(config, mix, inputs, seed, device, alter=None, cards=None):
+    return Session(mix, inputs, seed, cards or [device], alter)
 
 
 class Session:
-    def __init__(self, mix, inputs, seed, device, alter):
+    def __init__(self, mix, inputs, seed, cards, alter):
         import torch
 
-        self.torch, self.device, self.alter = torch, device, alter
+        self.torch, self.cards, self.alter = torch, cards, alter
         self.rate, self.channels = inputs.sample_rate, inputs.channels
         self.block, self.blocks = int(mix["block_frames"]), int(mix["blocks_per_call"])
         self.hz = np.random.default_rng([seed, 9]).uniform(50.0, 2000.0, self.channels)
@@ -46,17 +49,19 @@ class Session:
 
     def call(self, k: int):
         torch = self.torch
-        hz = torch.tensor(self.hz, dtype=torch.float64, device=self.device)
-        out = []
+        hz = {c: torch.tensor(self.hz, dtype=torch.float64, device=c) for c in set(self.cards)}
+        out, used = [], []
         for b in range(self.blocks):
-            n = torch.arange(self.block, dtype=torch.float64, device=self.device)
+            card = self.cards[b % len(self.cards)]
+            n = torch.arange(self.block, dtype=torch.float64, device=card)
             t = (self.frames(k) + b * self.block + n)[:, None] / self.rate
-            out.append(torch.sin(2 * np.pi * hz * t).to(torch.float32))
+            out.append(torch.sin(2 * np.pi * hz[card] * t).to(torch.float32).to(self.cards[0]))
+            used.append(card)
         pcm = torch.cat(out)
         if self.alter is not None:
             pcm = self.alter(pcm)
-        finite = bool(torch.isfinite(pcm).all().cpu())
-        return Block(k, self.block * self.blocks / self.rate if finite else 0.0, []), pcm
+        finite = bool(torch.isfinite(pcm).all().cpu())   # waits for every card's block
+        return Block(k, self.block * self.blocks / self.rate if finite else 0.0, [], used), pcm
 
     def to_host(self, record: Block, pcm):
         return pcm.cpu().numpy()

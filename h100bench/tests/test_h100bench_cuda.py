@@ -22,6 +22,9 @@ def test_a_short_run_on_the_card_is_correct(cell):
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the benchmark measures the card")
+    chips = next(w["chips"] for w in load_benchmark()["workloads"] if w["name"] == cell)
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"the cell needs {chips} cards")
     p = subprocess.run([sys.executable, "-m", "h100bench.run", "--workload", cell,
                         "--seed", str(2**32 + 17), "--seconds", "2", "--trace", "0"],
                        cwd=ROOT, capture_output=True, text=True, timeout=1200,

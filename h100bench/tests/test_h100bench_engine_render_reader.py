@@ -16,7 +16,7 @@ COPY = "Memcpy DtoH (Device -> Pageable)"
 
 
 def _run(ranges, device):
-    tr = Trace(device=device, ranges=ranges, start=0.0, end=1000.0, calls=1, files=[[]],
+    tr = Trace(device=[(*e, 0) for e in device], ranges=ranges, start=0.0, end=1000.0, calls=1, files=[[]],
                audio_s=1.0)
     return SimpleNamespace(trace=tr)
 

@@ -38,10 +38,12 @@ def test_benchmark_json_follows_the_contract():
     cells = set()
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["config"] in names and w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["config"] in names and w["chips"] in (1, 4) and len(w["why"]) <= 200
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
         cells.add(w["name"])
     assert len({(w["config"], w["traffic"]) for w in BENCH["workloads"]}) == len(cells)
+    # at most a quarter of the cells, rounded down, on four cards; one always may
+    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(cells) // 4)
     e2e = {m["name"] for m in BENCH["end_to_end"]}
     assert "setup_s" in e2e
     for m in BENCH["end_to_end"]:

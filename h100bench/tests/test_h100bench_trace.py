@@ -11,9 +11,9 @@ from h100bench.trace import Trace
 
 
 def _trace():
-    device = [("k_a", 10.0, 20.0), ("memcpy", 15.0, 25.0),   # overlap: counted once
-              ("window_add2_main<int>", 40.0, 44.0), ("window_add_main<float, 64>", 50.0, 52.0),
-              ("k_b", 95.0, 130.0)]                           # cut at the stretch's end
+    device = [("k_a", 10.0, 20.0, 0), ("memcpy", 15.0, 25.0, 0),   # overlap: counted once
+              ("window_add2_main<int>", 40.0, 44.0, 0), ("window_add_main<float, 64>", 50.0, 52.0, 0),
+              ("k_b", 95.0, 130.0, 0)]                           # cut at the stretch's end
     ranges = [("h100bench.call", 0.0, 100.0), ("flac.rice_scan", 26.0, 39.0),
               ("flac.predict", 60.0, 90.0)]
     return Trace(device=device, ranges=ranges, start=0.0, end=100.0, calls=2,
@@ -22,7 +22,7 @@ def _trace():
 
 def test_busy_is_the_union_of_the_device_intervals():
     tr = _trace()
-    assert tr.busy() == [(10.0, 25.0), (40.0, 44.0), (50.0, 52.0), (95.0, 100.0)]
+    assert tr.busy(0) == [(10.0, 25.0), (40.0, 44.0), (50.0, 52.0), (95.0, 100.0)]
     assert tr.busy_s == pytest.approx(26e-6) and tr.window_s == pytest.approx(100e-6)
 
 
